@@ -1,0 +1,226 @@
+"""Synthetic renderable world for end-to-end SLAM tests and benchmarks.
+
+The reference validates on TUM/KITTI/EuRoC recordings (SURVEY §4.1); those
+assets are unavailable offline, so this module provides a deterministic
+substitute: a textured box room rendered by per-pixel ray casting with exact
+ground-truth poses and depth. Texture is band-limited noise, which gives FAST
+plenty of corners and BRIEF distinctive patches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+
+@dataclass
+class Plane:
+    """Textured rectangle: point p0, spanning vectors eu/ev (texture axes)."""
+
+    p0: np.ndarray    # (3,) corner
+    eu: np.ndarray    # (3,) u axis (length = width in meters)
+    ev: np.ndarray    # (3,) v axis
+    tex: np.ndarray   # (Th, Tw) float32 texture in [0, 255]
+
+
+def _make_texture(rng, size=512, blur=1.2, contrast=1.0, style=None):
+    """Structured texture: band-limited noise + style-dependent structure.
+
+    Pure blurred noise is isotropic — real scenes have oriented structure
+    (posters, furniture edges, brickwork, window grids), which is what makes
+    the intensity-centroid orientation stable AND what gives a bag-of-words
+    vocabulary its word-usage statistics. Styles (drawn at random when
+    unspecified) vary that structure so a vocabulary trained on these worlds
+    is not dominated by one patch family:
+
+      rects    — random opaque rectangles (posters / furniture)
+      stripes  — oriented bands (fences, siding, blinds)
+      bricks   — offset grid of shaded cells (brickwork / windows)
+      blobs    — soft elliptical patches (vegetation / stains)
+    """
+    t = rng.uniform(0, 1, size=(size, size)).astype(np.float32)
+    k = max(int(blur * 2) | 1, 3)
+    kernel = np.exp(-0.5 * ((np.arange(k) - k // 2) / blur) ** 2)
+    kernel /= kernel.sum()
+    t = np.apply_along_axis(lambda r: np.convolve(r, kernel, "same"), 1, t)
+    t = np.apply_along_axis(lambda c: np.convolve(c, kernel, "same"), 0, t)
+    t = (t - t.min()) / max(t.max() - t.min(), 1e-9)
+    style = style or rng.choice(["rects", "stripes", "bricks", "blobs"])
+    if style == "rects":
+        for _ in range(60):
+            h = int(rng.integers(8, 60))
+            w = int(rng.integers(8, 60))
+            y = int(rng.integers(0, size - h))
+            x = int(rng.integers(0, size - w))
+            shade = rng.uniform(0, 1)
+            t[y:y + h, x:x + w] = 0.7 * shade + 0.3 * t[y:y + h, x:x + w]
+    elif style == "stripes":
+        period = int(rng.integers(14, 48))
+        ang = rng.uniform(0, np.pi)
+        yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        phase = (xx * np.cos(ang) + yy * np.sin(ang)) / period
+        bands = (phase - np.floor(phase)) < rng.uniform(0.3, 0.7)
+        shade = rng.uniform(0, 1)
+        t = np.where(bands, 0.65 * shade + 0.35 * t, t)
+        for _ in range(20):  # breaks in the stripes -> corners
+            h = int(rng.integers(10, 50))
+            w = int(rng.integers(10, 50))
+            y = int(rng.integers(0, size - h))
+            x = int(rng.integers(0, size - w))
+            t[y:y + h, x:x + w] = 0.7 * rng.uniform(0, 1) + 0.3 * t[y:y + h, x:x + w]
+    elif style == "bricks":
+        bh = int(rng.integers(20, 50))
+        bw = int(rng.integers(30, 80))
+        for r0 in range(0, size, bh):
+            off = (r0 // bh % 2) * bw // 2
+            for c0 in range(-bw, size, bw):
+                sh = rng.uniform(0.2, 1.0)
+                y1, x1 = min(r0 + bh - 2, size), min(c0 + off + bw - 2, size)
+                y0, x0 = max(r0, 0), max(c0 + off, 0)
+                if y1 > y0 and x1 > x0:
+                    t[y0:y1, x0:x1] = 0.6 * sh + 0.4 * t[y0:y1, x0:x1]
+    else:  # blobs
+        yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        for _ in range(40):
+            cy, cx = rng.integers(0, size, 2)
+            sy, sx = rng.uniform(6, 40, 2)
+            th = rng.uniform(0, np.pi)
+            dy, dx = yy - cy, xx - cx
+            ry = dy * np.cos(th) - dx * np.sin(th)
+            rx = dy * np.sin(th) + dx * np.cos(th)
+            mask = (ry / sy) ** 2 + (rx / sx) ** 2 < 1.0
+            sh = rng.uniform(0, 1)
+            t = np.where(mask, 0.55 * sh + 0.45 * t, t)
+    return (20 + 215 * contrast * t).astype(np.float32)
+
+
+def make_box_room(seed=0, size=6.0, height=3.0, styles="rects") -> List[Plane]:
+    """Box room centered at origin: floor, ceiling, four walls.
+
+    styles="rects" (default) reproduces the original noise+rectangles
+    texture BIT-EXACTLY (same rng consumption), so every tuned test scene
+    is unchanged; styles=None draws a random style per plane (vocabulary
+    training corpora want that variety)."""
+    rng = np.random.default_rng(seed)
+    s, h = size / 2.0, height / 2.0
+    e = np.eye(3)
+    planes = []
+
+    def add(p0, eu, ev):
+        planes.append(
+            Plane(np.asarray(p0, np.float32), np.asarray(eu, np.float32),
+                  np.asarray(ev, np.float32),
+                  _make_texture(rng, style=styles))
+        )
+
+    add([-s, +h, -s], e[0] * size, e[2] * size)    # floor (y = +h, y down)
+    add([-s, -h, -s], e[0] * size, e[2] * size)    # ceiling
+    add([-s, -h, +s], e[0] * size, e[1] * height)  # back wall  (z = +s)
+    add([-s, -h, -s], e[0] * size, e[1] * height)  # front wall (z = -s)
+    add([-s, -h, -s], e[2] * size, e[1] * height)  # left wall  (x = -s)
+    add([+s, -h, -s], e[2] * size, e[1] * height)  # right wall (x = +s)
+    return planes
+
+
+def render(
+    planes: List[Plane],
+    K: np.ndarray,
+    Tcw: np.ndarray,
+    width: int,
+    height: int,
+    return_depth: bool = False,
+):
+    """Ray-cast the planes into a (H, W) grayscale image (+ depth)."""
+    Twc = np.linalg.inv(Tcw)
+    Rwc = Twc[:3, :3]
+    C = Twc[:3, 3]
+    xs, ys = np.meshgrid(np.arange(width), np.arange(height))
+    rays_c = np.stack(
+        [(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1], np.ones_like(xs, np.float32)],
+        axis=-1,
+    ).astype(np.float32)
+    rays_w = rays_c @ Rwc.T  # (H, W, 3)
+
+    img = np.zeros((height, width), np.float32)
+    depth = np.full((height, width), np.inf, np.float32)
+    for pl in planes:
+        n = np.cross(pl.eu, pl.ev)
+        nn = n / np.linalg.norm(n)
+        denom = rays_w @ nn
+        t = ((pl.p0 - C) @ nn) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        hit = t > 0.05
+        pw = C + rays_w * t[..., None]
+        rel = pw - pl.p0
+        u = rel @ pl.eu / (pl.eu @ pl.eu)
+        v = rel @ pl.ev / (pl.ev @ pl.ev)
+        inside = hit & (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+        # depth along camera z axis (not ray length)
+        z = (pw - C) @ Rwc[:, 2]
+        closer = inside & (z < depth) & (z > 0)
+        # bilinear texture sample
+        Th, Tw = pl.tex.shape
+        tu = np.clip(u * (Tw - 1), 0, Tw - 1.001)
+        tv = np.clip(v * (Th - 1), 0, Th - 1.001)
+        u0 = tu.astype(int)
+        v0 = tv.astype(int)
+        fu = tu - u0
+        fv = tv - v0
+        val = (
+            pl.tex[v0, u0] * (1 - fu) * (1 - fv)
+            + pl.tex[v0, u0 + 1] * fu * (1 - fv)
+            + pl.tex[v0 + 1, u0] * (1 - fu) * fv
+            + pl.tex[v0 + 1, u0 + 1] * fu * fv
+        )
+        img = np.where(closer, val, img)
+        depth = np.where(closer, z, depth)
+    depth = np.where(np.isfinite(depth), depth, 0.0)
+    if return_depth:
+        return img, depth
+    return img
+
+
+def orbit_trajectory(n_frames: int, radius=0.4, advance=0.02, yaw_rate=0.004):
+    """Gentle forward + lateral sway camera path inside the room.
+
+    Returns list of (4, 4) Tcw (camera looks down +z toward the back wall).
+    """
+    poses = []
+    for i in range(n_frames):
+        yaw = yaw_rate * i
+        cx = radius * np.sin(0.15 * i)
+        cz = -1.5 + advance * i
+        cy = 0.1 * np.sin(0.07 * i)
+        Rwc = np.array(
+            [
+                [np.cos(yaw), 0, np.sin(yaw)],
+                [0, 1, 0],
+                [-np.sin(yaw), 0, np.cos(yaw)],
+            ],
+            np.float32,
+        )
+        C = np.array([cx, cy, cz], np.float32)
+        Tcw = np.eye(4, dtype=np.float32)
+        Tcw[:3, :3] = Rwc.T
+        Tcw[:3, 3] = -Rwc.T @ C
+        poses.append(Tcw)
+    return poses
+
+
+def render_sequence(
+    n_frames: int,
+    K: np.ndarray,
+    width=320,
+    height=240,
+    seed=0,
+    with_depth=False,
+    trajectory=None,
+):
+    planes = make_box_room(seed=seed)
+    poses = trajectory or orbit_trajectory(n_frames)
+    frames = []
+    for Tcw in poses:
+        out = render(planes, K, Tcw, width, height, return_depth=with_depth)
+        frames.append(out)
+    return frames, poses

@@ -4,15 +4,23 @@
 
 Phases, each printing one line:
   1. the card: nvidia-smi name and power limit; exits non-zero without CUDA;
-  2. builds the four CUDA kernels from orbslam2_tpu_torch/kernels/csrc;
+  2. builds the CUDA kernels from orbslam2_tpu_torch/kernels/csrc (one nvcc
+     per source, in parallel);
   3. compares each kernel with its plain PyTorch version on the card at the
      main path's shapes (640x480, 8 levels, N=1024 keypoints, P=12288 local
-     points, pose LM over 12288 edges of which ~600 valid) and times both
-     with CUDA events;
+     points, pose LM over 12288 edges of which ~600 valid; bundle adjustment
+     steps E-H on the local-BA window K=16, M=1024, O=8); times each
+     kernel on the device (torch.profiler's device events), one call of
+     its wrapper and of the plain version between CUDA events, and computes
+     its bound from the run's inputs; then the whole BA schedule, kernels
+     against the plain schedule, at K=16/M=1024/O=8 (5 iterations + outlier
+     round, the local mapper's last chunk) and at the reference bench's
+     K=64/M=4096/O=8 (10 iterations + outlier round);
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
      over 36 rendered frames and checks it is never lost, makes >= 3
      keyframes, keeps ATE under 0.035 m, and launched every kernel.
-Then the kernels as one JSON line, the card again, and as the last line
+Then the kernels as one JSON line (times, launches on the slice, the bound
+from this run's inputs), the card again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX.
 """
@@ -30,6 +38,17 @@ W, H = 640, 480
 FX = 520.0
 ATE_BOUND = 0.035      # the reference e2e test's RGB-D bound (m)
 N_FRAMES = 36
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
+# operations/s outside the tensor cores; every kernel here is float32 or
+# integer work on the CUDA cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
 def card_line() -> str:
@@ -56,9 +75,184 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+# the __global__ function each wrapper launches, by kernel NAME
+KERNEL_FUNCTIONS = {
+    "fast_score_nms": "fast_score_nms_kernel", "orb_describe": "orb_describe_kernel",
+    "hamming_top2_gated": "hamming_top2_kernel", "pose_lm": "pose_lm_kernel",
+    "ba_linearize": "ba_linearize_kernel", "ba_solve": "ba_solve_kernel",
+    "ba_update_cost": "ba_update_cost_kernel", "ba_accept": "ba_accept_kernel"}
+
+
+def device_ms(fn, kernel, reps=20):
+    """Mean device time in ms of the CUDA kernel named ``kernel`` over
+    ``reps`` calls of ``fn`` (torch.profiler's device events), each call
+    launching it once; with ``kernel=None``, of all device events."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.key)]
+    if kernel is not None:
+        count = sum(e.count for e in events)
+        check(count == reps, f"{kernel}: {count} device events for {reps} calls")
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ba_rows(dev, record):
+    """Kernels E-H one step each against their plain versions on the first
+    LM iteration of the local-BA window (K=16, M=1024, O=8), then the whole
+    schedule against the plain schedule at both shapes."""
+    from orbslam2_tpu_torch.kernels import (ba_accept, ba_linearize, ba_solve,
+                                            ba_update_cost)
+    from orbslam2_tpu_torch.models.camera import Camera
+    from orbslam2_tpu_torch.ops import ba
+    from orbslam2_tpu_torch.utils.synthetic import ba_window
+
+    cam = Camera.create(FX, FX, W / 2, H / 2, bf=52.0, width=W, height=H)
+
+    def problem(K, M):
+        return ba.BAProblem(*(torch.from_numpy(a).to(dev)
+                              for a in ba_window(K, M, 8, seed=K)))
+
+    def rel_err(a, b):
+        """max |a - b| over max |b| (sums in another order, float atomics)"""
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    def point_err(a, b):
+        """largest point difference relative to the point's distance"""
+        return ((a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-6)).max().item()
+
+    prob = problem(16, 1024)
+    K, M, O = 16, 1024, 8
+    lam = torch.full((1,), 1e-4, device=dev)
+    obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+    mask = ba_linearize.effective_mask(prob.obs_kf, prob.obs_valid, prob.point_valid)
+    n_obs = int(mask.sum())
+    n_pairs = int((mask.sum(1) ** 2).sum())
+    n_kf = int((prob.obs_kf >= 0).sum())
+
+    # E: linearisation and the reduced camera system
+    e_args = (cam, prob.poses, prob.points, *obs, prob.obs_valid, lam, True)
+    lin_k = ba_linearize.ba_linearize(*e_args)
+    lin_p = ba_linearize.ba_linearize_plain(*e_args)
+    errs = [rel_err(a, b) for a, b in zip(lin_k, lin_p)]
+    check(max(errs) <= 1e-4, f"kernel E relative errors {errs} > 1e-4")
+    record(ba_linearize, (lin_k.S - lin_p.S).abs().max().item(),
+           lambda: ba_linearize.ba_linearize(*e_args),
+           cuda_ms(lambda: ba_linearize.ba_linearize_plain(*e_args)),
+           f"K={K} M={M} O={O}, {n_obs} observations, {n_pairs} pairs; "
+           f"relative errors (S, b_S, E, Dinv, b_l) "
+           + ", ".join(f"{e:.1e}" for e in errs),
+           # inputs read once; S, b_S, E, Dinv, b_l written; per observation
+           # projection, Jacobians, weight, its H and b, E, D, b_l, E D^-1
+           # and its b_S term (~680 ops), per ordered pair of a landmark's
+           # observations a 6x6 block of 3-term dot products and its atomic
+           # add (216), per landmark the damped adjugate inverse (~60)
+           n_bytes=nbytes(prob.poses, prob.points, *obs, prob.obs_valid, lam,
+                          *lin_k),
+           n_ops=680 * n_obs + 216 * n_pairs + 60 * M)
+
+    # F: Cholesky solve and pose step, both fed the kernel's system
+    f_args = (lin_k.S, lin_k.b_S, prob.opt_mask, lam, prob.poses)
+    dc_k, pn_k = ba_solve.ba_solve(*f_args)
+    dc_p, pn_p = ba_solve.ba_solve_plain(*f_args)
+    err_f = (pn_k - pn_p).abs().max().item()
+    check(err_f <= 1e-4, f"kernel F poses differ by {err_f} > 1e-4")
+    n = 6 * K
+    record(ba_solve, err_f, lambda: ba_solve.ba_solve(*f_args),
+           cuda_ms(lambda: ba_solve.ba_solve_plain(*f_args)),
+           f"6K={n}; trial poses max diff {err_f:.2e}, steps max diff "
+           f"{(dc_k - dc_p).abs().max().item():.2e}",
+           # S, b_S, masks and poses read once, steps and poses written;
+           # n^3/3 multiply-adds of the Cholesky, two triangular solves,
+           # the symmetrisation, ~200 ops per camera for se3_exp(dc) @ T
+           n_bytes=nbytes(*f_args, dc_k, pn_k),
+           n_ops=2 * n ** 3 // 3 + 2 * n * n + n * n + 200 * K)
+
+    # G: back-substitution and trial cost, fed the kernels' step
+    step = (dc_k, lin_k.E, lin_k.Dinv, lin_k.b_l)
+    g_args = (cam, pn_k, prob.points, *obs, prob.obs_valid, prob.obs_valid, True,
+              step)
+    pts_k, cost_k, inl_k = ba_update_cost.ba_update_cost(*g_args)
+    pts_p, cost_p, inl_p = ba_update_cost.ba_update_cost_plain(*g_args)
+    err_g = (pts_k - pts_p).abs().max().item()
+    rel_g = point_err(pts_k, pts_p)
+    d_cost = abs(cost_k.item() - cost_p.item()) / abs(cost_p.item())
+    flips = (inl_k != inl_p).float().mean().item()
+    check(rel_g <= 1e-4, f"kernel G points differ by {rel_g} relative")
+    check(d_cost <= 1e-4 and flips <= 1e-3,
+          f"kernel G cost rel diff {d_cost}, inlier flips {flips}")
+    record(ba_update_cost, err_g,
+           lambda: ba_update_cost.ba_update_cost(*g_args),
+           cuda_ms(lambda: ba_update_cost.ba_update_cost_plain(*g_args)),
+           f"points max diff {err_g:.2e}, cost rel diff {d_cost:.1e}, "
+           f"inlier flips {flips:.1e}",
+           # inputs read once, points, cost and inliers written; per
+           # observation with a camera E^T dc (33 ops), projection, chi2 and
+           # rho (~42); per landmark the 3x3 back-substitution (~21)
+           n_bytes=nbytes(pn_k, prob.points, *obs, prob.obs_valid,
+                          prob.obs_valid, *step, pts_k, cost_k, inl_k),
+           n_ops=75 * n_kf + 21 * M)
+
+    # H: accept / reject, in place on copies of the state
+    def h_state():
+        return (cost_k, pn_k, pts_k, torch.full((1,), 1e9, device=dev),
+                lam.clone(), prob.poses.clone(), prob.points.clone())
+    st_k, st_p = h_state(), h_state()
+    ba_accept.ba_accept(*st_k)
+    ba_accept.ba_accept_plain(*st_p)
+    err_h = max((a - b).abs().max().item() for a, b in zip(st_k[3:], st_p[3:]))
+    check(err_h == 0.0, f"kernel H state differs by {err_h}")
+    st_t = h_state()
+    record(ba_accept, err_h, lambda: ba_accept.ba_accept(*st_t),
+           cuda_ms(lambda: ba_accept.ba_accept_plain(*st_t)),
+           "state exact (accepted step)",
+           # the costs, lambda, both poses and both points read once, cost,
+           # lambda, poses and points written; one compare and two selects
+           n_bytes=nbytes(*st_t) + nbytes(*st_t[3:]), n_ops=3)
+
+    # the whole schedule, kernels against the plain schedule
+    for K, M, iters in ((16, 1024, 5), (64, 4096, 10)):
+        prob = problem(K, M)
+        rk = ba.optimize_ba(cam, prob, iters=iters, outlier_rounds=1)
+        rp = ba.optimize_ba_plain(cam, prob, iters=iters, outlier_rounds=1)
+        d_pose = (rk.poses - rp.poses).abs().max().item()
+        d_pts = point_err(rk.points, rp.points)
+        flips = (rk.obs_inlier != rp.obs_inlier).float().mean().item()
+        d_cost = abs(rk.cost.item() - rp.cost.item()) / abs(rp.cost.item())
+        moved = (rk.poses - prob.poses).abs().max().item()
+        # float atomics in S and sums in another order: poses 1e-4, points
+        # 1e-4 of their distance, 0.1% inlier flips, cost 1e-3 relative
+        check(d_pose <= 1e-4 and d_pts <= 1e-4 and flips <= 1e-3
+              and d_cost <= 1e-3 and moved > 1e-3,
+              f"BA K={K} M={M}: poses {d_pose}, points {d_pts}, flips "
+              f"{flips}, cost {d_cost}, moved {moved}")
+        ms_k = cuda_ms(lambda: ba.optimize_ba(cam, prob, iters=iters,
+                                              outlier_rounds=1), reps=10)
+        dev_k = device_ms(lambda: ba.optimize_ba(cam, prob, iters=iters,
+                                                 outlier_rounds=1), None, reps=5)
+        ms_p = cuda_ms(lambda: ba.optimize_ba_plain(cam, prob, iters=iters,
+                                                    outlier_rounds=1),
+                       reps=3, warmup=1)
+        print(f"ba K={K} M={M} O=8 iters={iters}+outlier round: kernels "
+              f"{ms_k:.3f} ms ({dev_k:.3f} ms on the device) vs plain "
+              f"{ms_p:.3f} ms; poses max diff "
+              f"{d_pose:.2e}, points rel {d_pts:.2e}, inlier flips {flips:.1e}, "
+              f"cost {rk.cost.item():.3f} vs {rp.cost.item():.3f}")
 
 
 def main():
@@ -99,11 +293,20 @@ def main():
     ext_cfg = ExtractorConfig(n_features=1000, n_levels=8)
     rows = []
 
-    def record(mod, err, ms, plain_ms, note):
+    def record(mod, err, fn, plain_ms, note, n_bytes, n_ops):
+        """One kernel's row: ms is the kernel's device time, call_ms one
+        wrapper call between CUDA events (host work included), plain_ms
+        the plain version's call between CUDA events."""
+        ms = device_ms(fn, KERNEL_FUNCTIONS[mod.NAME])
+        call_ms = cuda_ms(fn)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
-                         ms=ms, plain_ms=plain_ms))
-        print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+                         ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        print(f"kernel {mod.NAME}: {note}; device {ms:.4f} ms (call {call_ms:.4f} "
+              f"ms) vs plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by})")
 
     # A: FAST score + NMS on the 640x480 level 0
     border = orb.PATCH_R
@@ -114,9 +317,13 @@ def main():
     check(torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p),
           f"kernel A not bit-exact (max err {err_a})")
     record(fast_score, err_a,
-           cuda_ms(lambda: fast_score.fast_score_nms(img0, border)),
+           lambda: fast_score.fast_score_nms(img0, border),
            cuda_ms(lambda: fast_score.fast_score_nms_plain(img0, border)),
-           "bit-exact")
+           "bit-exact",
+           # the level read once, two score maps written; per pixel 16 ring
+           # differences, two arc-min doublings over 16 (4 x 16 min each),
+           # two 16-way max, the sign flips, the border test and 9-way NMS
+           n_bytes=3 * 4 * H * W, n_ops=(16 + 2 * (64 + 16) + 16 + 1 + 12) * H * W)
 
     # B: IC angle + BRIEF for the level-0 budget of keypoints
     budget0 = orb.level_budgets(1000, 8, 1.2)[0]
@@ -133,10 +340,15 @@ def main():
     check(err_b <= 1e-3, f"kernel B angle error {err_b} > 1e-3 rad")
     check(bit_agree >= 0.995, f"kernel B descriptor bits agree {bit_agree} < 0.995")
     record(describe, err_b,
-           cuda_ms(lambda: describe.orb_describe(img0, blurred, xy_i)),
+           lambda: describe.orb_describe(img0, blurred, xy_i),
            cuda_ms(lambda: describe.orb_describe_plain(img0, blurred, xy_i)),
            f"{int(kv.sum())} keypoints, angle max err {err_b:.2e} rad, "
-           f"bits agree {bit_agree:.6f}")
+           f"bits agree {bit_agree:.6f}",
+           # both level images and the keypoints read once, angle and 32
+           # bytes written; per keypoint 2 MACs over the 729-pixel circle,
+           # then 256 rotated, rounded and compared pairs (~12 ops each)
+           n_bytes=2 * 4 * H * W + xy_i.numel() * 4 + xy_i.shape[0] * (4 + 32),
+           n_ops=xy_i.shape[0] * (2 * 2 * 729 + 256 * 12))
 
     # C: gated Hamming top-2, P=12288 local points vs N=1024 keypoints.
     # The points are the frame's own keypoints back-projected with their
@@ -185,10 +397,17 @@ def main():
           f"kernel C not bit-exact (max err {err_c})")
     n_rows = int(row_valid.sum())
     n_hit = int((out_k[1] <= 100).sum())
-    record(hamming, err_c, cuda_ms(lambda: hamming.hamming_top2_gated(*c_args)),
+    # work of this run's data: the gate (~10 ops) for every valid row and
+    # valid keypoint, the 256-bit distance (8 xor, 8 popc, 7 adds) and the
+    # top-2 update (~4) for the pairs inside the search radius
+    d2 = ((proj[row_valid][:, None, :] - feats.xy[None]) ** 2).sum(-1)
+    in_r = (d2 <= (r_px[row_valid] ** 2)[:, None]) & feats.valid[None]
+    c_ops = 10 * n_rows * int(feats.valid.sum()) + 27 * int(in_r.sum())
+    c_bytes = sum(t.numel() * t.element_size() for t in c_args) + 4 * 4 * P
+    record(hamming, err_c, lambda: hamming.hamming_top2_gated(*c_args),
            cuda_ms(lambda: hamming.hamming_top2_gated_plain(*c_args)),
            f"bit-exact; P={P} N={N}, {n_rows} rows in frustum, "
-           f"{n_hit} with best <= TH_HIGH")
+           f"{n_hit} with best <= TH_HIGH", n_bytes=c_bytes, n_ops=c_ops)
 
     # D: pose LM over 12288 edges, ~600 valid (10% gross outliers, half
     # of them stereo), from a perturbed start
@@ -220,10 +439,19 @@ def main():
     check(err_d <= 1e-4, f"kernel D pose differs by {err_d} > 1e-4")
     check(dn <= 0.005 * n_val, f"kernel D inliers {int(n_k)} vs {int(n_p)}")
     t_err = np.abs(Tk.cpu().numpy()[:3, 3] - T_true[:3, 3]).max()
-    record(pose_lm, err_d, cuda_ms(lambda: pose_lm.pose_lm(*d_args)),
+    record(pose_lm, err_d, lambda: pose_lm.pose_lm(*d_args),
            cuda_ms(lambda: pose_lm.pose_lm_plain(*d_args), reps=5),
            f"pose max diff {err_d:.2e}, inliers {int(n_k)} vs {int(n_p)} "
-           f"of {n_val}, translation error vs truth {t_err:.2e} m")
+           f"of {n_val}, translation error vs truth {t_err:.2e} m",
+           # inputs read once (pose, points, observations, sigma2, valid),
+           # pose, inliers, count and chi2 written; per LM iteration over the
+           # valid edges: evaluation + Jacobian (~90 ops), the 27 entries of
+           # H and b (~160), the trial cost (~40); per round a chi2 pass over
+           # all edges (~40)
+           n_bytes=64 + Pd * (12 + 12 + 4 + 1) + 64 + 4 + Pd * (1 + 4),
+           n_ops=4 * 10 * n_val * (90 + 160 + 40) + 4 * Pd * 40)
+
+    ba_rows(dev, record)
 
     # ---- hot path: extraction + fused cascade per frame --------------------
     # (the reference bench's hot-path definition) against kernel C's local

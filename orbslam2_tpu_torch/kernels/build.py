@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels: nvcc into one shared library, ctypes.
 
 The sources under ``csrc/`` have a plain C interface, so they compile in
-seconds without PyTorch's headers:
+seconds without PyTorch's headers. One nvcc per source, all started
+together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o <build>/libosl_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <build>/libosl_kernels_<hash>.so <tmp>/*.o
 
 No ``--use_fast_math``: the BRIEF rotation and the pose LM need the IEEE
 cosf/sinf/atan2f/sqrtf, and ``-fmad=false`` keeps nvcc from contracting
@@ -31,8 +34,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "kernels", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "orbslam2_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                           "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +48,10 @@ _SIGNATURES = {
     "osl_orb_describe": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
     "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I] + [_P] * 5,
     "osl_pose_lm": [_P] * 5 + [_I] + [_F] * 5 + [_I, _I] + [_P] * 5,
+    "osl_ba_linearize": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 6,
+    "osl_ba_solve": [_P] * 5 + [_I] + [_P] * 4,
+    "osl_ba_update_cost": [_P] * 12 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 5,
+    "osl_ba_accept": [_P] * 7 + [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -77,26 +85,38 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels unless the library for these sources exists;
-    returns its path. Writes to a temporary name first, so a concurrent
-    process never loads a half-written file."""
+    returns its path. Builds in a temporary directory and moves the library
+    into place last, so a concurrent process never loads a half-written
+    file."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp] + cu
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p)[:-3] + ".o") for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+            + ["-c", "-o", obj, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for src, obj in zip(cu, objs)]
+        failed = []
+        for src, proc in zip(cu, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(f"{os.path.basename(src)}:\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", lib] + objs,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -121,6 +141,17 @@ def check(err: int, name: str):
     if err != 0:
         msg = library().osl_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def expect(name: str, device, specs):
+    """Raise unless each (label, tensor, dtype, shape) of ``specs`` is a
+    contiguous tensor of that dtype and shape on ``device``."""
+    for label, t, dtype, shape in specs:
+        if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {label} must be a contiguous {dtype} {shape} on "
+                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def stream_handle(device) -> int:

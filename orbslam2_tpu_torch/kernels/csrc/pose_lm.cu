@@ -124,50 +124,6 @@ __device__ void block_sum(float (&v)[n], float (*scratch)[kNB], float* out) {
   __syncthreads();
 }
 
-// se3_exp(xi) @ T into Tn (thread 0 only), as geometry.se3_exp computes it.
-__device__ void se3_exp_left(const float xi[6], const float* T, float* Tn) {
-  const float p0 = xi[3], p1 = xi[4], p2 = xi[5];
-  const float theta2 = p0 * p0 + p1 * p1 + p2 * p2;
-  const float theta = sqrtf(theta2 + 1e-16f);
-  const bool small = theta2 < 1e-8f;
-  const float a = small ? 1.0f - theta2 / 6.0f : sinf(theta) / theta;
-  const float b = small ? 0.5f - theta2 / 24.0f : (1.0f - cosf(theta)) / theta2;
-  const float c = small ? 1.0f / 6.0f - theta2 / 120.0f
-                        : (theta - sinf(theta)) / (theta2 * theta);
-  const float K[3][3] = {{0.0f, -p2, p1}, {p2, 0.0f, -p0}, {-p1, p0, 0.0f}};
-  float KK[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      KK[i][j] = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
-    }
-  }
-  float E[4][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float t = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float eye = (i == j) ? 1.0f : 0.0f;
-      E[i][j] = eye + a * K[i][j] + b * KK[i][j];
-      const float V = eye + b * K[i][j] + c * KK[i][j];
-      t = (j == 0) ? V * xi[0] : t + V * xi[j];
-    }
-    E[i][3] = t;
-  }
-  E[3][0] = E[3][1] = E[3][2] = 0.0f;
-  E[3][3] = 1.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      Tn[4 * i + j] = E[i][0] * T[j] + E[i][1] * T[4 + j] +
-                      E[i][2] * T[8 + j] + E[i][3] * T[12 + j];
-    }
-  }
-}
-
 // Damped 6x6 solve dx = -(H + lam diag(H) + 1e-9 I)^-1 b by the reference's
 // unrolled Cholesky (thread 0 only). hb holds the 21 upper entries of H
 // row-major, then b.
@@ -279,7 +235,7 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
       if (tid == 0) {
         float dx[6];
         solve_step(red, lam, dx);
-        se3_exp_left(dx, T, Tn);
+        osl::se3_exp_left(dx, T, Tn);
       }
       __syncthreads();
       float cn[1] = {0.0f};

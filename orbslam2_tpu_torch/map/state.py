@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 
 
 class KfDeviceMirror:
@@ -54,8 +55,8 @@ class KfDeviceMirror:
     FIELDS = ("kf_desc", "kf_xy", "kf_octave", "kf_ur", "kf_depth",
               "kf_feat_valid")
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.arrays: Optional[dict] = None
         self._capacity = -1
 
@@ -154,11 +155,11 @@ class MapState:
     # LocalMapping::RequestStop handshake around †CorrectLoop).
     correction_epoch: int = 0
     dev_kf: KfDeviceMirror = field(default_factory=KfDeviceMirror)
-    device: str = "cpu"
+    device: str = DEFAULT_DEVICE
 
     # ------------------------------------------------------------------
     @staticmethod
-    def allocate(cfg: SlamConfig, device="cpu") -> "MapState":
+    def allocate(cfg: SlamConfig, device=DEFAULT_DEVICE) -> "MapState":
         K = cfg.capacity.max_keyframes
         M = cfg.capacity.max_map_points
         N = cfg.extractor.max_keypoints

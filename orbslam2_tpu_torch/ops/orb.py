@@ -21,6 +21,7 @@ import torch
 
 from . import image as img_ops
 from ..config import ExtractorConfig
+from ..device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from ..kernels import describe as _describe
 from ..kernels import fast_score as _fast_score
 
@@ -136,9 +137,9 @@ class OrbExtractor:
     """
 
     def __init__(self, cfg: ExtractorConfig, height: int, width: int,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.height, self.width = height, width
         self.shapes = img_ops.pyramid_shapes(height, width, cfg.n_levels,
                                              cfg.scale_factor)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
+from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .local_mapping import LocalMapper
 from .map.state import MapState
 from .ops import geometry as geo
@@ -24,12 +25,12 @@ from .tracking import Tracker, TrackingState
 
 class SlamSystem:
     def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = False,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if enable_loop_closing:
             raise NotImplementedError(
                 "loop closing comes with ROADMAP queue 1, slice 8")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._build()
 
     def _build(self):

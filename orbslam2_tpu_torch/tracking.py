@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
+from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .kernels import hamming as _hamming
 from .map.state import MapState
 from .models.camera import Camera, in_image, project, undistort_points
@@ -250,10 +251,11 @@ def rgbd_virtual_right_u16(depth_q, depth_scale: float, kp_xy_raw,
 # ---------------------------------------------------------------------------
 
 class Tracker:
-    def __init__(self, cfg: SlamConfig, slam_map: MapState, device="cpu"):
+    def __init__(self, cfg: SlamConfig, slam_map: MapState,
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.map = slam_map
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cc = cfg.camera
         self.cam = Camera.create(
             cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2, cc.p1, cc.p2, cc.k3,

@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 
 from ..config import SlamConfig
+from ..device import DEFAULT as DEFAULT_DEVICE
 from ..map.state import MapState
 from ..models.camera import Camera
 
@@ -40,7 +41,8 @@ def camera_from_numpy(d: dict) -> Camera:
                          width=int(d["width"]), height=int(d["height"]))
 
 
-def map_state_from_numpy(cfg: SlamConfig, d: dict, device="cpu") -> MapState:
+def map_state_from_numpy(cfg: SlamConfig, d: dict,
+                         device=DEFAULT_DEVICE) -> MapState:
     """A MapState holding copies of every array field in ``d`` (the
     reference MapState's arrays by field name, e.g. from
     ``{f: getattr(m, f) for f in ...}``), plus its scalar counters."""

@@ -224,3 +224,36 @@ def render_sequence(
         out = render(planes, K, Tcw, width, height, return_depth=with_depth)
         frames.append(out)
     return frames, poses
+
+
+def ba_window(K: int, M: int, O: int, seed: int = 0, fx: float = 520.0,
+              cx: float = 320.0, cy: float = 240.0, bf: float = 52.0,
+              outlier_frac: float = 0.1) -> list:
+    """A seeded local bundle-adjustment window as the eight numpy arrays of
+    ``ops.ba.BAProblem``: K cameras along a 2 m baseline, M points 5-10 m
+    ahead, O observation slots per point (about 90% valid, a third stereo,
+    octaves 0-3, 0.5 px noise), ``outlier_frac`` of the observations moved
+    20-60 px, camera 0 fixed, and the start perturbed (1 cm on the other
+    cameras, 2 cm on the points)."""
+    rng = np.random.default_rng(seed)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    poses[:, 0, 3] = np.linspace(0, 2, K)
+    points = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M),
+                       rng.uniform(5, 10, M)], 1).astype(np.float32)
+    obs_kf = rng.integers(0, K, (M, O)).astype(np.int32)
+    pc = points[:, None, :] + poses[obs_kf][..., :3, 3]
+    u = fx * pc[..., 0] / pc[..., 2] + cx + rng.normal(0, 0.5, (M, O))
+    v = fx * pc[..., 1] / pc[..., 2] + cy + rng.normal(0, 0.5, (M, O))
+    ur = np.where(rng.random((M, O)) < 1 / 3, u - bf / pc[..., 2], -1.0)
+    obs_uvr = np.stack([u, v, ur], -1).astype(np.float32)
+    bad = rng.random((M, O)) < outlier_frac
+    shift = rng.uniform(20, 60, (M, O, 2)) * rng.choice([-1, 1], (M, O, 2))
+    obs_uvr[..., :2] += np.where(bad[..., None], shift, 0).astype(np.float32)
+    obs_valid = rng.random((M, O)) < 0.9
+    obs_kf[~obs_valid & (rng.random((M, O)) < 0.5)] = -1
+    sigma2 = (1.2 ** (2.0 * rng.integers(0, 4, (M, O)))).astype(np.float32)
+    poses_init = poses.copy()
+    poses_init[1:, :3, 3] += rng.normal(0, 0.01, (K - 1, 3)).astype(np.float32)
+    points_init = points + rng.normal(0, 0.02, points.shape).astype(np.float32)
+    return [poses_init, np.arange(K) > 0, points_init, np.ones(M, bool), obs_kf,
+            obs_uvr, sigma2, obs_valid]

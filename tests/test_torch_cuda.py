@@ -14,11 +14,14 @@ import torch
 
 from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.config import CameraConfig, ExtractorConfig, SlamConfig
-from orbslam2_tpu_torch.kernels import describe, fast_score, hamming, pose_lm
+from orbslam2_tpu_torch.kernels import (ba_accept, ba_linearize, ba_solve,
+                                        ba_update_cost, describe, fast_score,
+                                        hamming, pose_lm)
 from orbslam2_tpu_torch.models.camera import Camera
+from orbslam2_tpu_torch.ops import ba
 from orbslam2_tpu_torch.ops import image as img_ops
 from orbslam2_tpu_torch.ops import orb
-from orbslam2_tpu_torch.utils.synthetic import render_sequence
+from orbslam2_tpu_torch.utils.synthetic import ba_window, render_sequence
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +118,91 @@ def test_pose_lm_matches_plain(cuda):
     # counts within 0.5% of the valid edges
     assert (Tk - Tp).abs().max().item() <= 1e-4
     assert abs(int(nk) - int(npl)) <= 0.005 * valid.sum()
+
+
+# the two BA shapes of chip_smoke.py: the local-BA window and the
+# reference bench's, with the iterations each runs there
+BA_SHAPES = [(16, 1024, 5), (64, 4096, 10)]
+BA_CAM = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0)
+
+
+def _ba_problem(dev, K, M):
+    return ba.BAProblem(*(torch.from_numpy(a).to(dev)
+                          for a in ba_window(K, M, 8, seed=K)))
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _point_rel(a, b):
+    """Largest point difference relative to the point's distance."""
+    return ((a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-6)).max().item()
+
+
+@pytest.mark.parametrize("K,M,iters", BA_SHAPES)
+def test_ba_steps_match_plain(cuda, K, M, iters):
+    """One LM iteration, kernel by kernel (E, F, G, H), each fed the same
+    inputs as its plain version. S is a float-atomic sum and the other sums
+    run in another order: 1e-4 of each output's largest entry for E, 1e-4
+    on the trial poses, 1e-4 of each point's distance, 1e-4 relative on
+    the cost, 0.1%
+    inlier flips; H only selects and scales, so it is exact."""
+    prob = _ba_problem(cuda, K, M)
+    lam = torch.full((1,), 1e-4, device=cuda)
+    obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+    e_args = (BA_CAM, prob.poses, prob.points, *obs, prob.obs_valid, lam, True)
+    lin = ba_linearize.ba_linearize(*e_args)
+    for a, b in zip(lin, ba_linearize.ba_linearize_plain(*e_args)):
+        assert _rel(a, b) <= 1e-4
+    f_args = (lin.S, lin.b_S, prob.opt_mask, lam, prob.poses)
+    dc, poses_n = ba_solve.ba_solve(*f_args)
+    assert (poses_n - ba_solve.ba_solve_plain(*f_args)[1]).abs().max() <= 1e-4
+    g_args = (BA_CAM, poses_n, prob.points, *obs, prob.obs_valid,
+              prob.obs_valid, True, (dc, lin.E, lin.Dinv, lin.b_l))
+    pk, ck, ik = ba_update_cost.ba_update_cost(*g_args)
+    pp, cp, ip = ba_update_cost.ba_update_cost_plain(*g_args)
+    assert _point_rel(pk, pp) <= 1e-4
+    assert abs(ck.item() - cp.item()) <= 1e-4 * abs(cp.item())
+    assert (ik != ip).float().mean() <= 1e-3
+    for cost in (1e9, 0.0):   # accepted, rejected
+        states = [(ck, poses_n, pk, torch.full((1,), cost, device=cuda),
+                   lam.clone(), prob.poses.clone(), prob.points.clone())
+                  for _ in range(2)]
+        ba_accept.ba_accept(*states[0])
+        ba_accept.ba_accept_plain(*states[1])
+        for a, b in zip(states[0][3:], states[1][3:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,M,iters", BA_SHAPES)
+def test_optimize_ba_matches_plain(cuda, K, M, iters):
+    """The whole schedule through kernels E-H against the plain schedule on
+    the card: poses 1e-4, points 1e-4 of their distance, 0.1%
+    inlier flips, cost 1e-3 relative (float atomics in S)."""
+    prob = _ba_problem(cuda, K, M)
+    kernels.reset_launches()
+    rk = ba.optimize_ba(BA_CAM, prob, iters=iters, outlier_rounds=1)
+    counts = kernels.launch_counts()
+    rp = ba.optimize_ba_plain(BA_CAM, prob, iters=iters, outlier_rounds=1)
+    assert (rk.poses - rp.poses).abs().max() <= 1e-4
+    assert _point_rel(rk.points, rp.points) <= 1e-4
+    assert (rk.obs_inlier != rp.obs_inlier).float().mean() <= 1e-3
+    assert abs(rk.cost.item() - rp.cost.item()) <= 1e-3 * abs(rp.cost.item())
+    # each LM iteration launches E, F and H once and G twice; G also gives
+    # each phase's initial cost, the outlier classification and the final one
+    n_lm = iters + max(iters // 2, 1)
+    n_phases = len(ba._split(iters)) + len(ba._split(max(iters // 2, 1)))
+    assert counts["ba_linearize"] == counts["ba_solve"] == counts["ba_accept"] == n_lm
+    assert counts["ba_update_cost"] == n_lm + n_phases + 2
+
+
+def test_ba_kernels_refuse_oversize(cuda):
+    """Above K = 64, M = 4096 or O = 8 the kernels raise, they do not fall
+    back."""
+    big = _ba_problem(cuda, 16, 4097)
+    with pytest.raises(ValueError, match="M <= 4096"):
+        ba.optimize_ba(BA_CAM, big, iters=1)
 
 
 def test_slice_runs_through_kernels(cuda):

@@ -217,7 +217,8 @@ def test_map_state_from_numpy_and_attribute_refresh():
     _, jm = _jax_map_with_points()
     fields = {f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)
               if f.name not in ("cfg", "lock", "dev_kf")}
-    tm = map_state_from_numpy(tconfig.SlamConfig(sensor="rgbd"), fields)
+    tm = map_state_from_numpy(tconfig.SlamConfig(sensor="rgbd"), fields,
+                              device="cpu")
     for name, value in fields.items():
         if isinstance(value, np.ndarray):
             np.testing.assert_array_equal(getattr(tm, name), value)

@@ -40,7 +40,8 @@ def _frames():
 def _extract(i):
     img = _frames()[i]
     fj = jorb.OrbExtractor(JExtractorConfig(n_features=500, n_levels=4), H, W)(img)
-    ft = torb.OrbExtractor(ExtractorConfig(n_features=500, n_levels=4), H, W)(img)
+    ft = torb.OrbExtractor(ExtractorConfig(n_features=500, n_levels=4), H, W,
+                           device="cpu")(img)
     fj = {k: np.asarray(getattr(fj, k)) for k in fj._fields}
     ft = {k: getattr(ft, k).numpy() for k in ft._fields}
     return fj, ft
@@ -165,7 +166,7 @@ def test_upright_descriptors():
     cfgj = JExtractorConfig(n_features=500, n_levels=4, upright=True)
     cfgt = ExtractorConfig(n_features=500, n_levels=4, upright=True)
     fj = jorb.OrbExtractor(cfgj, H, W)(img)
-    ft = torb.OrbExtractor(cfgt, H, W)(img)
+    ft = torb.OrbExtractor(cfgt, H, W, device="cpu")(img)
     s = slice(0, jorb.level_budgets(500, 4, 1.2)[0])
     v = np.asarray(fj.valid)[s]
     # upright: no rotation, so level-0 descriptors are bit-exact

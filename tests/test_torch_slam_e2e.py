@@ -45,7 +45,7 @@ def rgbd_sequence():
 class TestRgbdPipeline:
     def test_tracks_and_ate(self, rgbd_sequence):
         frames, poses = rgbd_sequence
-        slam = SlamSystem(_cfg())
+        slam = SlamSystem(_cfg(), device="cpu")
         est, gt = [], []
         for i, ((img, depth), Tcw_true) in enumerate(zip(frames, poses)):
             pose = slam.track_rgbd(img, depth, i / 30.0)
@@ -66,7 +66,7 @@ class TestRgbdPipeline:
 
     def test_trajectory_export(self, rgbd_sequence, tmp_path):
         frames, poses = rgbd_sequence
-        slam = SlamSystem(_cfg())
+        slam = SlamSystem(_cfg(), device="cpu")
         for i, (img, depth) in enumerate(frames[:10]):
             slam.track_rgbd(img, depth, i / 30.0)
         tum = tmp_path / "traj.txt"
@@ -90,17 +90,17 @@ class TestRgbdPipeline:
     def test_unported_paths_raise(self, rgbd_sequence):
         img = rgbd_sequence[0][0][0]
         with pytest.raises(NotImplementedError, match="slice 8"):
-            SlamSystem(_cfg(), enable_loop_closing=True)
+            SlamSystem(_cfg(), enable_loop_closing=True, device="cpu")
         for sensor in ("monocular", "stereo"):
             cfg = _cfg()
             cfg.sensor = sensor
-            other = SlamSystem(cfg)
+            other = SlamSystem(cfg, device="cpu")
             with pytest.raises(NotImplementedError, match="slice 6"):
                 if sensor == "stereo":
                     other.track_stereo(img, img, 0.0)
                 else:
                     other.track_monocular(img, 0.0)
-        slam = SlamSystem(_cfg())
+        slam = SlamSystem(_cfg(), device="cpu")
         with pytest.raises(NotImplementedError, match="slice 9"):
             slam.tracker.track_pipelined(None, 0.0)
         with pytest.raises(NotImplementedError, match="slice 7"):
@@ -117,7 +117,7 @@ def test_slice_parity_with_reference(rgbd_sequence):
 
     frames, _ = rgbd_sequence
     ref = JSlamSystem(_cfg(jconfig), enable_loop_closing=False)
-    port = SlamSystem(_cfg())
+    port = SlamSystem(_cfg(), device="cpu")
     for i, (img, depth) in enumerate(frames[:12]):
         pj = ref.track_rgbd(img, depth, i / 30.0)
         pt = port.track_rgbd(img, depth, i / 30.0)
@@ -131,6 +131,23 @@ def test_slice_parity_with_reference(rgbd_sequence):
     np.testing.assert_array_equal(kt, kj)
     np.testing.assert_array_equal(port.map.kf_frame_id[kt], ref.map.kf_frame_id[kj])
     assert len(kj) >= 2
+
+
+def test_default_device_is_the_card():
+    """Without a device argument the port runs on the card; where there is
+    none it raises instead of moving to the CPU."""
+    from orbslam2_tpu_torch.map.state import MapState
+    from orbslam2_tpu_torch.ops.orb import OrbExtractor
+
+    cfg = _cfg()
+    makers = (lambda: SlamSystem(cfg), lambda: MapState.allocate(cfg),
+              lambda: OrbExtractor(cfg.extractor, H, W))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert torch.device(make().device).type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
 
 
 def test_port_never_imports_jax():

@@ -9,11 +9,12 @@ Phases, each printing one line:
   3. compares each kernel with its plain PyTorch version on the card at the
      main path's shapes (640x480, 8 levels, N=1024 keypoints, P=12288 local
      points, pose LM over 12288 edges of which ~600 valid; bundle adjustment
-     steps E-H on the local-BA window K=16, M=1024, O=8); times each
-     kernel on the device (torch.profiler's device events), one call of
-     its wrapper and of the plain version between CUDA events, and computes
-     its bound from the run's inputs; then the whole BA schedule, kernels
-     against the plain schedule, at K=16/M=1024/O=8 (5 iterations + outlier
+     steps E-H on the local-BA window K=16, M=1024, O=8); times one call
+     of each kernel's wrapper and of its plain version between CUDA
+     events, and the kernel alone on the device (torch.profiler's device
+     events), and computes its bound from the run's inputs; then the whole
+     BA schedule, kernels against the plain schedule
+     (utils/ba_parity.compare), at K=16/M=1024/O=8 (5 iterations + outlier
      round, the local mapper's last chunk) and at the reference bench's
      K=64/M=4096/O=8 (10 iterations + outlier round);
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
@@ -75,14 +76,6 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-# the __global__ function each wrapper launches, by kernel NAME
-KERNEL_FUNCTIONS = {
-    "fast_score_nms": "fast_score_nms_kernel", "orb_describe": "orb_describe_kernel",
-    "hamming_top2_gated": "hamming_top2_kernel", "pose_lm": "pose_lm_kernel",
-    "ba_linearize": "ba_linearize_kernel", "ba_solve": "ba_solve_kernel",
-    "ba_update_cost": "ba_update_cost_kernel", "ba_accept": "ba_accept_kernel"}
-
-
 def device_ms(fn, kernel, reps=20):
     """Mean device time in ms of the CUDA kernel named ``kernel`` over
     ``reps`` calls of ``fn`` (torch.profiler's device events), each call
@@ -112,6 +105,34 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def describe_footprint(xy, angle, width, height):
+    """Distinct pixels kernel B reads at keypoints ``xy`` (n, 2) with their
+    angles: of the level, the radius-15 circles (729 pixels, rows to
+    round(sqrt(15^2 - dy^2))); of the blurred level, the 512 test points
+    rotated and rounded; both clamped to the image as the kernel clamps."""
+    from orbslam2_tpu_torch.utils.convert import brief_pattern
+
+    dev = xy.device
+    d = torch.arange(-15, 16, device=dev)
+    umax = torch.round(torch.sqrt((225 - d * d).float()))
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    inside = dx.abs() <= umax[:, None]
+    circle = torch.stack([dx[inside], dy[inside]], 1)            # (729, 2)
+    pa, pb = brief_pattern()
+    pat = torch.from_numpy(np.concatenate([pa, pb])).float().to(dev)
+    c, s = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
+    tests = torch.stack([torch.round(pat[:, 0] * c - pat[:, 1] * s),
+                         torch.round(pat[:, 0] * s + pat[:, 1] * c)], -1)
+
+    def distinct(p):
+        x = p[..., 0].long().clamp(0, width - 1)
+        y = p[..., 1].long().clamp(0, height - 1)
+        return int(torch.unique(y * width + x).numel())
+
+    xy = xy.long()
+    return distinct(xy[:, None] + circle) + distinct(xy[:, None] + tests.long())
+
+
 def ba_rows(dev, record):
     """Kernels E-H one step each against their plain versions on the first
     LM iteration of the local-BA window (K=16, M=1024, O=8), then the whole
@@ -120,6 +141,7 @@ def ba_rows(dev, record):
                                             ba_update_cost)
     from orbslam2_tpu_torch.models.camera import Camera
     from orbslam2_tpu_torch.ops import ba
+    from orbslam2_tpu_torch.utils import ba_parity
     from orbslam2_tpu_torch.utils.synthetic import ba_window
 
     cam = Camera.create(FX, FX, W / 2, H / 2, bf=52.0, width=W, height=H)
@@ -225,22 +247,18 @@ def ba_rows(dev, record):
            # lambda, poses and points written; one compare and two selects
            n_bytes=nbytes(*st_t) + nbytes(*st_t[3:]), n_ops=3)
 
-    # the whole schedule, kernels against the plain schedule
-    for K, M, iters in ((16, 1024, 5), (64, 4096, 10)):
+    # the whole schedule, kernels against the plain schedule: float atomics
+    # in S and sums in another order, held to ba_parity.LIMITS (poses 1e-4,
+    # points 1e-4 of their distance where the inliers constrain them,
+    # every point's reprojections 1e-2 px, 0.1% inlier flips, cost 1e-3)
+    for K, M, iters in ba_parity.SHAPES:
         prob = problem(K, M)
         rk = ba.optimize_ba(cam, prob, iters=iters, outlier_rounds=1)
         rp = ba.optimize_ba_plain(cam, prob, iters=iters, outlier_rounds=1)
-        d_pose = (rk.poses - rp.poses).abs().max().item()
-        d_pts = point_err(rk.points, rp.points)
-        flips = (rk.obs_inlier != rp.obs_inlier).float().mean().item()
-        d_cost = abs(rk.cost.item() - rp.cost.item()) / abs(rp.cost.item())
+        got = ba_parity.compare(cam, prob, rk, rp)
         moved = (rk.poses - prob.poses).abs().max().item()
-        # float atomics in S and sums in another order: poses 1e-4, points
-        # 1e-4 of their distance, 0.1% inlier flips, cost 1e-3 relative
-        check(d_pose <= 1e-4 and d_pts <= 1e-4 and flips <= 1e-3
-              and d_cost <= 1e-3 and moved > 1e-3,
-              f"BA K={K} M={M}: poses {d_pose}, points {d_pts}, flips "
-              f"{flips}, cost {d_cost}, moved {moved}")
+        check(not ba_parity.over_limits(got) and moved > 1e-3,
+              f"BA K={K} M={M}: {got}, moved {moved}")
         ms_k = cuda_ms(lambda: ba.optimize_ba(cam, prob, iters=iters,
                                               outlier_rounds=1), reps=10)
         dev_k = device_ms(lambda: ba.optimize_ba(cam, prob, iters=iters,
@@ -250,9 +268,11 @@ def ba_rows(dev, record):
                        reps=3, warmup=1)
         print(f"ba K={K} M={M} O=8 iters={iters}+outlier round: kernels "
               f"{ms_k:.3f} ms ({dev_k:.3f} ms on the device) vs plain "
-              f"{ms_p:.3f} ms; poses max diff "
-              f"{d_pose:.2e}, points rel {d_pts:.2e}, inlier flips {flips:.1e}, "
-              f"cost {rk.cost.item():.3f} vs {rp.cost.item():.3f}")
+              f"{ms_p:.3f} ms; poses max diff {got['poses']:.2e}, points rel "
+              f"{got['points']:.2e} ({got['points_all']:.2e} with the "
+              f"{got['loose']} loose ones), reprojection {got['reproj']:.2e} "
+              f"px, inlier flips {got['flips']:.1e}, cost "
+              f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}")
 
 
 def main():
@@ -294,19 +314,19 @@ def main():
     rows = []
 
     def record(mod, err, fn, plain_ms, note, n_bytes, n_ops):
-        """One kernel's row: ms is the kernel's device time, call_ms one
-        wrapper call between CUDA events (host work included), plain_ms
-        the plain version's call between CUDA events."""
-        ms = device_ms(fn, KERNEL_FUNCTIONS[mod.NAME])
-        call_ms = cuda_ms(fn)
+        """One kernel's row: ms is one wrapper call between CUDA events
+        (host work included), device_ms the kernel's own device time,
+        plain_ms the plain version's call between CUDA events."""
+        ms = cuda_ms(fn)
+        dev_ms = device_ms(fn, mod.FUNCTION)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
-                         ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-        print(f"kernel {mod.NAME}: {note}; device {ms:.4f} ms (call {call_ms:.4f} "
-              f"ms) vs plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by})")
+        print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
+              f"{dev_ms:.4f} ms) vs plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by})")
 
     # A: FAST score + NMS on the 640x480 level 0
     border = orb.PATCH_R
@@ -344,10 +364,12 @@ def main():
            cuda_ms(lambda: describe.orb_describe_plain(img0, blurred, xy_i)),
            f"{int(kv.sum())} keypoints, angle max err {err_b:.2e} rad, "
            f"bits agree {bit_agree:.6f}",
-           # both level images and the keypoints read once, angle and 32
-           # bytes written; per keypoint 2 MACs over the 729-pixel circle,
+           # read once: the pixels under the keypoints' circles and rotated
+           # tests (describe_footprint), the pattern and the keypoints; angle
+           # and 32 bytes written; per keypoint 2 MACs over the circle,
            # then 256 rotated, rounded and compared pairs (~12 ops each)
-           n_bytes=2 * 4 * H * W + xy_i.numel() * 4 + xy_i.shape[0] * (4 + 32),
+           n_bytes=4 * describe_footprint(xy_i, ang_k, W, H)
+           + 4 * 2 * 512 + xy_i.numel() * 4 + xy_i.shape[0] * (4 + 32),
            n_ops=xy_i.shape[0] * (2 * 2 * 729 + 256 * 12))
 
     # C: gated Hamming top-2, P=12288 local points vs N=1024 keypoints.

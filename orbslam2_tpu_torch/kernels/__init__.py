@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain twins.
 
 One module per kernel, each holding the wrapper, the plain PyTorch version
-of the same function, and ``launches``, a plain integer the wrapper adds one
-to each time it launches the CUDA kernel:
+of the same function, ``FUNCTION``, the name of the ``__global__`` function
+it launches, and ``launches``, a plain integer the wrapper adds one to each
+time it launches the CUDA kernel:
 
   fast_score      A  FAST score + border + 3x3 NMS   (ops/orb.py detect_level)
   describe        B  IC angle + steered BRIEF         (ops/orb.py)

@@ -17,6 +17,7 @@ from . import build
 from .ba_linearize import check_sizes
 
 NAME = "ba_accept"
+FUNCTION = "ba_accept_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:436"
 launches = 0

@@ -31,6 +31,7 @@ from . import build
 from ..models.camera import Camera
 
 NAME = "ba_linearize"
+FUNCTION = "ba_linearize_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:243"
 launches = 0

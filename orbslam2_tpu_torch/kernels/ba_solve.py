@@ -24,6 +24,7 @@ from .ba_linearize import check_sizes
 from ..ops import geometry as geo
 
 NAME = "ba_solve"
+FUNCTION = "ba_solve_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:224"
 launches = 0

@@ -27,6 +27,7 @@ from .ba_linearize import check_sizes, chi2_rho, effective_mask, project
 from ..models.camera import Camera
 
 NAME = "ba_update_cost"
+FUNCTION = "ba_update_cost_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:215"
 launches = 0

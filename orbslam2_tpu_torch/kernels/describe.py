@@ -20,6 +20,7 @@ import torch
 from . import build
 
 NAME = "orb_describe"
+FUNCTION = "orb_describe_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/orb_describe.cu"
 REPLACES = "orbslam2_tpu/ops/orb.py:341"
 launches = 0

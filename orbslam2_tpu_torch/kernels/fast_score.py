@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from . import build
 
 NAME = "fast_score_nms"
+FUNCTION = "fast_score_nms_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/fast_score_nms.cu"
 REPLACES = "orbslam2_tpu/ops/orb.py:79"
 launches = 0

@@ -18,6 +18,7 @@ from . import build
 from ..ops import matching
 
 NAME = "hamming_top2_gated"
+FUNCTION = "hamming_top2_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/hamming_top2.cu"
 REPLACES = "orbslam2_tpu/ops/matching.py:36"
 launches = 0

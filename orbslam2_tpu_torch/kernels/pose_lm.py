@@ -24,6 +24,7 @@ from ..ops import geometry as geo
 from ..ops import linalg_small
 
 NAME = "pose_lm"
+FUNCTION = "pose_lm_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/pose_lm.cu"
 REPLACES = "orbslam2_tpu/ops/pose_opt.py:83"
 launches = 0

@@ -15,6 +15,7 @@ from orbslam2_tpu.ops import ba as jba
 from orbslam2_tpu_torch.models.camera import Camera as TCamera
 from orbslam2_tpu_torch.ops import ba as tba
 from orbslam2_tpu_torch.ops import geometry as tgeo
+from orbslam2_tpu_torch.utils import ba_parity
 from orbslam2_tpu_torch.utils.synthetic import ba_window
 from test_ba import make_ba_problem
 
@@ -186,3 +187,42 @@ def test_parity_forced_reject(iters, rounds):
     moved = (rt.poses.numpy() != np.array(prob.poses)).any()
     assert moved == (iters > 1)
     _assert_parity(rt, rj)
+
+
+def _solved_window():
+    cam = TCamera.create(**CAM)
+    prob = tba.BAProblem(*(torch.from_numpy(a) for a in _window(8, 256, 5)))
+    return cam, prob, tba.optimize_ba(cam, prob, iters=2, outlier_rounds=0)
+
+
+def test_ba_parity_equal_results():
+    """A result read against itself: every reading is zero, none over its
+    limit, and the window's well-observed landmarks all count as
+    constrained."""
+    cam, prob, res = _solved_window()
+    got = ba_parity.compare(cam, prob, res, res)
+    assert ba_parity.over_limits(got) == {}
+    assert got["loose"] < 0.05 * prob.points.shape[0]
+    assert all(v == 0 for k, v in got.items() if k != "loose")
+
+
+def test_ba_parity_moved_points():
+    """A constrained landmark moved by 1e-3 of its distance shows in
+    ``points`` and ``reproj`` and goes over both limits; a landmark without
+    inlier observations moved by as much is loose: it shows only in
+    ``points_all``, and its reprojection shift is zero."""
+    cam, prob, ref = _solved_window()
+    inlier = ref.obs_inlier.clone()
+    inlier[0] = False
+    ref = ref._replace(obs_inlier=inlier)
+    base = ba_parity.compare(cam, prob, ref, ref)
+    pts = ref.points.clone()
+    pts[0] *= 1.001
+    got = ba_parity.compare(cam, prob, ref._replace(points=pts), ref)
+    assert got["loose"] == base["loose"] >= 1
+    assert got["points"] == 0 and got["reproj"] == 0
+    assert got["points_all"] == pytest.approx(1e-3, rel=1e-3)
+    pts[1] *= 1.001
+    got = ba_parity.compare(cam, prob, ref._replace(points=pts), ref)
+    assert got["points"] == pytest.approx(1e-3, rel=1e-3)
+    assert set(ba_parity.over_limits(got)) == {"points", "reproj"}

@@ -21,6 +21,7 @@ from orbslam2_tpu_torch.models.camera import Camera
 from orbslam2_tpu_torch.ops import ba
 from orbslam2_tpu_torch.ops import image as img_ops
 from orbslam2_tpu_torch.ops import orb
+from orbslam2_tpu_torch.utils import ba_parity
 from orbslam2_tpu_torch.utils.synthetic import ba_window, render_sequence
 
 pytestmark = pytest.mark.cuda
@@ -178,17 +179,16 @@ def test_ba_steps_match_plain(cuda, K, M, iters):
 @pytest.mark.parametrize("K,M,iters", BA_SHAPES)
 def test_optimize_ba_matches_plain(cuda, K, M, iters):
     """The whole schedule through kernels E-H against the plain schedule on
-    the card: poses 1e-4, points 1e-4 of their distance, 0.1%
-    inlier flips, cost 1e-3 relative (float atomics in S)."""
+    the card, held to ``ba_parity.LIMITS`` (float atomics in S): poses
+    1e-4, points 1e-4 of their distance where the final inliers constrain
+    them and every point's reprojections within 1e-2 px, 0.1% inlier
+    flips, cost 1e-3 relative."""
     prob = _ba_problem(cuda, K, M)
     kernels.reset_launches()
     rk = ba.optimize_ba(BA_CAM, prob, iters=iters, outlier_rounds=1)
     counts = kernels.launch_counts()
     rp = ba.optimize_ba_plain(BA_CAM, prob, iters=iters, outlier_rounds=1)
-    assert (rk.poses - rp.poses).abs().max() <= 1e-4
-    assert _point_rel(rk.points, rp.points) <= 1e-4
-    assert (rk.obs_inlier != rp.obs_inlier).float().mean() <= 1e-3
-    assert abs(rk.cost.item() - rp.cost.item()) <= 1e-3 * abs(rp.cost.item())
+    assert ba_parity.over_limits(ba_parity.compare(BA_CAM, prob, rk, rp)) == {}
     # each LM iteration launches E, F and H once and G twice; G also gives
     # each phase's initial cost, the outlier classification and the final one
     n_lm = iters + max(iters // 2, 1)

@@ -76,10 +76,11 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, reps=20):
-    """Mean device time in ms of the CUDA kernel named ``kernel`` over
-    ``reps`` calls of ``fn`` (torch.profiler's device events), each call
-    launching it once; with ``kernel=None``, of all device events."""
+def device_ms(fn, kernel, reps=20, per_call=1):
+    """Mean device time in ms per call of ``fn`` of the CUDA kernel named
+    ``kernel`` over ``reps`` calls (torch.profiler's device events), each
+    call launching it ``per_call`` times; with ``kernel=None``, of all
+    device events."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -90,10 +91,15 @@ def device_ms(fn, kernel, reps=20):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and (kernel is None or kernel in e.key)]
-    if kernel is not None:
-        count = sum(e.count for e in events)
-        check(count == reps, f"{kernel}: {count} device events for {reps} calls")
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if kernel is None:
+        return total / reps
+    # the mean over the launches the profiler saw (it may miss one of a
+    # run of short kernels), times the launches in a call
+    count = sum(e.count for e in events)
+    check(0 < count <= reps * per_call,
+          f"{kernel}: {count} device events for {reps} x {per_call} launches")
+    return total / count * per_call
 
 
 def check(cond, msg):
@@ -275,6 +281,204 @@ def ba_rows(dev, record):
               f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}")
 
 
+def extraction_kernels(extractor, frame):
+    """The kinds of device work of one ``extractor(frame)`` call from a host
+    image (torch.profiler's device events); fails unless each is a kernel
+    of the extraction path (I, A, J, B), the fill of the frame's zeroed
+    feature buffer, or the image's upload and float conversion."""
+    from orbslam2_tpu_torch.kernels import describe, fast_score, orb_select, pyramid
+
+    extractor(frame)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        extractor(frame)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    allowed = [m.FUNCTION for m in (pyramid, fast_score, orb_select, describe)] \
+        + ["FillFunctor", "copy", "Memcpy HtoD", "Memset"]
+    other = sorted(n for n in names if not any(a in n for a in allowed))
+    check(not other, f"extraction launched other device work: {other}")
+    return sorted({a for n in names for a in allowed if a in n})
+
+
+def front_rows(dev, record, img0, depth0, feats, cam):
+    """Kernels I, J, L and N against their plain versions at the main path's
+    shapes: the 8-level pyramid of the 640x480 frame, the selection on every
+    level, the depth sampling of the frame's N=1024 keypoints (with and
+    without distortion), and a seeded point-attribute batch at P=512, O=8
+    and O=32."""
+    import torch.nn.functional as F
+
+    from orbslam2_tpu_torch.kernels import (fast_score, orb_select, point_attrs,
+                                            pyramid, rgbd_depth)
+    from orbslam2_tpu_torch.models.camera import Camera
+    from orbslam2_tpu_torch.ops import image as img_ops
+    from orbslam2_tpu_torch.ops import orb
+
+    # I: every level from the previous one (level 0: the blur alone),
+    # level and blur bit-exact
+    shapes = img_ops.pyramid_shapes(H, W, 8, 1.2)
+    args = [None] + shapes[1:]
+    levels, prev = [], img0
+    for shape in args:
+        lk, bk = pyramid.pyramid_level(prev, shape)
+        lp, bp = pyramid.pyramid_level_plain(prev, shape)
+        check(torch.equal(lk, lp) and torch.equal(bk, bp),
+              f"kernel I not bit-exact at {tuple(lk.shape)}: level "
+              f"{(lk - lp).abs().max().item()}, blur {(bk - bp).abs().max().item()}")
+        levels.append(lk)
+        prev = lk
+
+    def chain(step):
+        prev = img0
+        for shape in args:
+            prev = step(prev, shape)[0]
+
+    taps = torch.from_numpy(pyramid.gaussian_kernel1d())
+    k2d = (taps[:, None] * taps[None, :]).to(dev)[None, None]
+
+    def library_level(prev, shape):
+        level = prev if shape is None else F.interpolate(
+            prev[None, None], size=shape, mode="bilinear", align_corners=False)[0, 0]
+        return level, F.conv2d(F.pad(level[None, None], (3, 3, 3, 3), mode="reflect"),
+                               k2d)[0, 0]
+
+    torch.backends.cudnn.allow_tf32 = False
+    lib_i = cuda_ms(lambda: chain(library_level))
+    px_in = sum(a * b for a, b in [(H, W)] + shapes[:-1])
+    px_out = sum(a * b for a, b in shapes)
+    record(pyramid, 0.0, lambda: chain(pyramid.pyramid_level),
+           cuda_ms(lambda: chain(pyramid.pyramid_level_plain)),
+           "8 levels 640x480 -> 179x134, levels and blurs bit-exact; library: "
+           "F.interpolate bilinear + a 7x7 F.conv2d (no TF32), which rounds "
+           "differently (one 2-D pass, cuDNN's order)",
+           # each source level read once, levels 1-7 and 8 blurs written;
+           # per output pixel two 2-tap passes (6 ops, the rows pass over the
+           # source width) and 2 x 7 taps of the blur (28)
+           n_bytes=4 * (px_in + (px_out - H * W) + px_out),
+           n_ops=34 * px_out, library_ms=lib_i, per_call=8)
+
+    # J: the selection on every level from kernel A's maps, written into
+    # feature buffers at the level's offset as the extractor does; every
+    # slot bit-exact, invalid ones included
+    budgets = orb.level_budgets(1000, 8, 1.2)
+    maps = [fast_score.fast_score_nms(lv, orb.PATCH_R) for lv in levels]
+    n_tot = sum(budgets)
+
+    def select(kernel):
+        f = orb.empty_features(n_tot, dev)
+        xy_i, s = [], 0
+        for lvl, ((raw, nms), n) in enumerate(zip(maps, budgets)):
+            sl = slice(s, s + n)
+            sel = orb_select.Selection(f.xy[sl], f.response[sl], f.octave[sl], f.valid[sl])
+            if kernel:
+                xy_i.append(orb_select.orb_select(raw, nms, n, 20.0, 7.0, 1.2 ** lvl,
+                                                  lvl, out=sel)[0])
+            else:
+                xi, xs, r, v = orb_select.orb_select_plain(raw, nms, n, 20.0, 7.0)
+                sel.xy.copy_(xs * float(1.2 ** lvl))
+                sel.response.copy_(r)
+                sel.octave.fill_(lvl)
+                sel.valid.copy_(v)
+                xy_i.append(xi)
+            s += n
+        return torch.cat(xy_i), f
+
+    xk, fk = select(True)
+    xp, fp = select(False)
+    same = torch.equal(xk, xp) and all(torch.equal(a, b) for a, b in zip(fk, fp))
+    err_j = (fk.xy - fp.xy).abs().max().item()
+    check(same, f"kernel J not bit-exact (xy max err {err_j})")
+    n_valid = int(fk.valid.sum())
+    keys = sum(orb_select.n_keys(*lv.shape) for lv in levels)
+    record(orb_select, err_j, lambda: select(True),
+           cuda_ms(lambda: select(False)),
+           f"8 levels, {n_tot} slots ({n_valid} valid), {keys} keys, every slot "
+           f"bit-exact",
+           # both score maps read once, the slots written (xy_int, xy,
+           # response, octave, valid); per pixel the cell max, threshold and
+           # 8 rounds of compare-select (19 ops); per key the bitonic sort's
+           # log2(n)(log2(n)+1)/2 compare-exchanges
+           n_bytes=2 * 4 * px_out + 25 * n_tot,
+           n_ops=19 * px_out + sum(
+               k * int(np.log2(k)) * (int(np.log2(k)) + 1) // 2
+               for k in (1 << int(np.ceil(np.log2(orb_select.n_keys(*lv.shape))))
+                         for lv in levels)),
+           per_call=8)
+
+    # L: the frame's keypoints on the stride-2 uint16 depth upload
+    d = depth0[::2, ::2]
+    d_u16 = np.where((d > 0) & (d * 1e3 < 65535.0), d * 1e3, 0.0).astype(np.uint16)
+    depth_q = torch.from_numpy(d_u16).to(dev)
+    n = feats.xy.shape[0]
+    cam_d = Camera.create(FX, FX, W / 2, H / 2, k1=-0.12, k2=0.03, p1=0.001,
+                          p2=-0.0008, k3=0.01, bf=52.0, width=W, height=H)
+    l_args = (depth_q, 1e-3, feats.xy, feats.valid)
+    err_l = 0.0
+    for c in (cam, cam_d):
+        out_k = rgbd_depth.rgbd_depth(*l_args, c, stride=2)
+        out_p = rgbd_depth.rgbd_depth_plain(*l_args, c, stride=2)
+        err_l = max([err_l] + [(a - b).abs().max().item() for a, b in zip(out_k, out_p)])
+        check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+              f"kernel L not bit-exact (distortion {c.has_distortion}, err {err_l})")
+    n_depth = int((out_k[2] > 0).sum())
+    record(rgbd_depth, err_l, lambda: rgbd_depth.rgbd_depth(*l_args, cam, stride=2),
+           cuda_ms(lambda: rgbd_depth.rgbd_depth_plain(*l_args, cam, stride=2)),
+           f"N={n}, {n_depth} with depth, bit-exact with and without distortion "
+           f"(timed without, as the slice's camera)",
+           # keypoints and validity read, one u16 depth per keypoint, u_r and
+           # depth written; ~12 ops a keypoint without distortion
+           n_bytes=n * (8 + 1 + 2 + 4 + 4), n_ops=12 * n)
+
+    # N: seeded batches over a 64-keyframe mirror of 1024 features
+    rng = np.random.default_rng(5)
+    Kf, Nf, P = 64, 1024, 512
+    kf_desc = torch.from_numpy(rng.integers(0, 256, (Kf, Nf, 32)).astype(np.uint8)).to(dev)
+    kf_oct = torch.from_numpy(rng.integers(0, 8, (Kf, Nf)).astype(np.int32)).to(dev)
+    poses = np.tile(np.eye(4, dtype=np.float32), (Kf, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 0.5, (Kf, 3))
+    kf_pose = torch.from_numpy(poses).to(dev)
+
+    def batch(O):
+        n_obs = rng.integers(1, O + 1, P)
+        obs_kf = np.full((P, O), -1, np.int16)
+        obs_ft = np.full((P, O), -1, np.int16)
+        for p in range(P):
+            obs_kf[p, :n_obs[p]] = rng.choice(Kf, n_obs[p], replace=False)
+            obs_ft[p, :n_obs[p]] = rng.integers(0, Nf, n_obs[p])
+        pos = rng.uniform(-3, 3, (P, 3)).astype(np.float32) + np.float32([0, 0, 5])
+        ref = np.where(rng.random(P) < 0.8, obs_kf[:, 0], -1).astype(np.int32)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return (kf_desc, kf_oct, kf_pose, t(obs_kf), t(obs_ft), t(pos), t(ref),
+                1.2, 7.0), int(n_obs.sum())
+
+    err_n = 0.0
+    for O in (8, 32):
+        n_args, n_live = batch(O)
+        ok = point_attrs.point_attributes(*n_args)
+        op = point_attrs.point_attributes_plain(*n_args)
+        check(torch.equal(ok[:, :32], op[:, :32]) and torch.equal(ok[:, 37], op[:, 37]),
+              f"kernel N descriptors or ref_kf differ at O={O}")
+        e = ((ok[:, 32:37] - op[:, 32:37]).abs()
+             / op[:, 32:37].abs().clamp_min(1.0)).max().item()
+        check(e <= 1e-5, f"kernel N normals / band differ by {e} at O={O}")
+        err_n = max(err_n, (ok - op).abs().max().item())
+        if O == 8:
+            args8, live8 = n_args, n_live
+    record(point_attrs, err_n, lambda: point_attrs.point_attributes(*args8),
+           cuda_ms(lambda: point_attrs.point_attributes_plain(*args8)),
+           f"P={P}, O=8 ({live8} observations) and O=32: descriptors and ref_kf "
+           f"exact, normals and band within 1e-5 (timed at O=8)",
+           # slots read, each live observation's descriptor, keyframe pose
+           # and octave, the points read once, (P, 38) written; per ordered
+           # pair of slots 8 xor + popc + add (24 ops), the median's count
+           # (2 ops per pair), ~40 ops per slot for the normal
+           n_bytes=P * 8 * 4 + live8 * (32 + 48 + 4) + P * (12 + 4 + 38 * 4),
+           n_ops=P * (8 * 8 * 26 + 8 * 40))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -313,19 +517,24 @@ def main():
     ext_cfg = ExtractorConfig(n_features=1000, n_levels=8)
     rows = []
 
-    def record(mod, err, fn, plain_ms, note, n_bytes, n_ops):
-        """One kernel's row: ms is one wrapper call between CUDA events
-        (host work included), device_ms the kernel's own device time,
-        plain_ms the plain version's call between CUDA events."""
+    def record(mod, err, fn, plain_ms, note, n_bytes, n_ops, library_ms=None,
+               per_call=1):
+        """One kernel's row: ms is one call of ``fn`` between CUDA events
+        (host work included; ``per_call`` launches, e.g. every pyramid
+        level), device_ms the kernel's own device time per call, plain_ms
+        the plain version's call between CUDA events, library_ms one
+        PyTorch call of the same function where there is one."""
         ms = cuda_ms(fn)
-        dev_ms = device_ms(fn, mod.FUNCTION)
+        dev_ms = device_ms(fn, mod.FUNCTION, per_call=per_call)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
                          ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
-              f"{dev_ms:.4f} ms) vs plain {plain_ms:.4f} ms, bound "
+              f"{dev_ms:.4f} ms) vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound_ms:.6f} ms ({bound_by})")
 
     # A: FAST score + NMS on the 640x480 level 0
@@ -378,6 +587,8 @@ def main():
     # points filling the buffer, projected from a slightly moved pose.
     extractor = orb.OrbExtractor(ext_cfg, H, W, device=dev)
     feats = extractor(img0)
+    print("extraction on the card, all its device work: "
+          + ", ".join(extraction_kernels(extractor, frames[0][0])))
     N = feats.xy.shape[0]
     P = 12288
     rng = np.random.default_rng(0)
@@ -474,6 +685,7 @@ def main():
            n_ops=4 * 10 * n_val * (90 + 160 + 40) + 4 * Pd * 40)
 
     ba_rows(dev, record)
+    front_rows(dev, record, img0, depth0, feats, cam)
 
     # ---- hot path: extraction + fused cascade per frame --------------------
     # (the reference bench's hot-path definition) against kernel C's local

@@ -13,16 +13,22 @@ time it launches the CUDA kernel:
   ba_solve        F  BA damped Cholesky + pose step   (ops/ba.py)
   ba_update_cost  G  BA back-substitution + cost      (ops/ba.py)
   ba_accept       H  BA LM accept / reject            (ops/ba.py)
+  pyramid         I  pyramid level: resize + blur     (ops/image.py, ops/orb.py)
+  orb_select      J  cell top-8 + round-robin select  (ops/orb.py)
+  rgbd_depth      L  depth sample, u_r, undistortion  (tracking.py)
+  point_attrs     N  distinctive desc, normal, band   (ops/point_attrs.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
 """
 
 from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost, describe,
-               fast_score, hamming, pose_lm)
+               fast_score, hamming, orb_select, point_attrs, pose_lm, pyramid,
+               rgbd_depth)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
-           ba_update_cost, ba_accept)
+           ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
+           point_attrs)
 
 
 def reset_launches():

@@ -52,6 +52,12 @@ _SIGNATURES = {
     "osl_ba_solve": [_P] * 5 + [_I] + [_P] * 4,
     "osl_ba_update_cost": [_P] * 12 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 5,
     "osl_ba_accept": [_P] * 7 + [_I, _I, _P],
+    "osl_pyramid_level": [_P, _I] + [_P] * 4 + [_I, _I] + [_F] * 7
+    + [_P, _P, _I, _I, _P],
+    "osl_orb_select": [_P, _P, _I, _I, _I, _F, _F, _F, _I] + [_P] * 6,
+    "osl_rgbd_depth": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _I] + [_F] * 9
+    + [_P] * 4,
+    "osl_point_attrs": [_P, _P, _P, _I] + [_P] * 4 + [_I, _I, _F, _F, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

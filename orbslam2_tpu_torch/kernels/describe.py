@@ -12,7 +12,7 @@ wherever the rotated pattern offsets round the same.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,11 +94,20 @@ def orb_describe_plain(img: torch.Tensor, blurred: torch.Tensor,
 
 
 def orb_describe(img: torch.Tensor, blurred: torch.Tensor, xy: torch.Tensor,
-                 upright: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B on CUDA tensors, the plain version on CPU tensors."""
+                 upright: bool = False,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B on CUDA tensors, the plain version on CPU tensors. With
+    ``out`` = (angle (n,) f32, desc (n, 32) u8), views of the frame's
+    buffers, the results are written there and returned."""
     global launches
     if img.device.type == "cpu":
-        return orb_describe_plain(img, blurred, xy, upright)
+        angle, desc = orb_describe_plain(img, blurred, xy, upright)
+        if out is None:
+            return angle, desc
+        out[0].copy_(angle)
+        out[1].copy_(desc)
+        return out
     if not (img.is_cuda and blurred.device == img.device
             and xy.device == img.device):
         raise ValueError(f"{NAME}: all inputs must be on one CUDA device")
@@ -110,8 +119,12 @@ def orb_describe(img: torch.Tensor, blurred: torch.Tensor, xy: torch.Tensor,
     xy = xy.to(torch.int32).contiguous()
     n = xy.shape[0]
     H, W = img.shape
-    angle = torch.empty(n, dtype=torch.float32, device=img.device)
-    desc = torch.empty((n, 32), dtype=torch.uint8, device=img.device)
+    if out is None:
+        out = (torch.empty(n, dtype=torch.float32, device=img.device),
+               torch.empty((n, 32), dtype=torch.uint8, device=img.device))
+    build.expect(NAME, img.device, [("out angle", out[0], torch.float32, (n,)),
+                                    ("out desc", out[1], torch.uint8, (n, 32))])
+    angle, desc = out
     err = build.library().osl_orb_describe(
         img.data_ptr(), blurred.data_ptr(), xy.data_ptr(), n,
         _pattern_on(img.device).data_ptr(), H, W, int(bool(upright)),

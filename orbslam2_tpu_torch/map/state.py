@@ -484,7 +484,16 @@ class MapState:
         if len(mps) == 0:
             return
         if len(mps) >= 128 and self.dev_kf.arrays is not None:
-            return self._update_point_attributes_device(mps)
+            from ..kernels.point_attrs import MAX_SLOTS
+
+            # kernel N takes up to a warp of observation slots; a point seen
+            # by more keyframes keeps the host pass
+            wide = (self.mp_obs_kf[mps] >= 0).sum(1) > MAX_SLOTS
+            if not wide.all():
+                self._update_point_attributes_device(mps[~wide])
+            mps = mps[wide]
+            if len(mps) == 0:
+                return
         sf = self.cfg.extractor.scale_factor
         n_levels = self.cfg.extractor.n_levels
         P = len(mps)
@@ -549,7 +558,8 @@ class MapState:
         self.mp_dmin[mps] = dmax / (sf ** (n_levels - 1))
 
     def _update_point_attributes_device(self, mps: np.ndarray):
-        """Attribute refresh on device (same math as the host pass above),
+        """Attribute refresh on device (kernel N on the card; the same math
+        as the host pass above),
         with the batch padded to the reference's buckets and the observation
         axis compacted to the smallest power-of-two bucket covering this
         batch's max observation count."""

@@ -61,10 +61,13 @@ def distort_normalized(cam: Camera, xn: torch.Tensor) -> torch.Tensor:
 
 def undistort_points(cam: Camera, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Undistort pixel coords (..., 2) by fixed-point iteration
-    (cv::undistortPoints analog, fixed iteration count)."""
-    xn = torch.stack(
-        [(uv[..., 0] - cam.cx) / cam.fx, (uv[..., 1] - cam.cy) / cam.fy], dim=-1
-    )
+    (cv::undistortPoints analog, fixed iteration count). The divisions are
+    IEEE divisions of two tensors on every device (on the card a Python
+    scalar divisor becomes a reciprocal and a product), as kernel L and the
+    reference compute them."""
+    u, v = uv[..., 0], uv[..., 1]
+    xn = torch.stack([(u - cam.cx) / torch.full_like(u, cam.fx),
+                      (v - cam.cy) / torch.full_like(v, cam.fy)], dim=-1)
     xd = xn
     xu = xn
     for _ in range(iters):

@@ -1,13 +1,15 @@
 """ORB feature extraction: FAST-9/16 + oriented BRIEF (port of
 ``orbslam2_tpu.ops.orb``).
 
-Per pyramid level: kernel A (``kernels/fast_score.py``) computes the FAST
-score, the border mask and the 3x3 NMS; the cell selection below is plain
-PyTorch with the reference's tie rules (the first index wins among equal
-scores, in the per-cell top-8 and in the round-robin, and both thresholds
-are strict ``>``); kernel
-B (``kernels/describe.py``) computes the intensity-centroid angle on the level
-and the steered BRIEF descriptor on its 7x7 sigma=2 blur.
+Per pyramid level, four kernels: I (``kernels/pyramid.py``) resizes the
+level from the previous one and blurs it (7x7, sigma=2); A
+(``kernels/fast_score.py``) computes the FAST score, the border mask and the
+3x3 NMS; J (``kernels/orb_select.py``) selects the level's keypoints with
+the reference's tie rules (the first index wins among equal scores, in the
+per-cell top-8 and in the round-robin, and both thresholds are strict
+``>``) and the parabola subpixel offsets; B (``kernels/describe.py``)
+computes the intensity-centroid angle on the level and the steered BRIEF
+descriptor on its blur. J and B write straight into the frame's buffers.
 
 Outputs are fixed-capacity arrays with validity masks, in the reference's
 layouts: xy (N, 2) f32 level-0 coords, octave (N,) i32, desc (N, 32) u8.
@@ -24,10 +26,10 @@ from ..config import ExtractorConfig
 from ..device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from ..kernels import describe as _describe
 from ..kernels import fast_score as _fast_score
+from ..kernels import orb_select as _select
+from ..kernels import pyramid as _pyramid
 
 PATCH_R = 20          # keypoints stay this far from the level border
-CELL = 32             # selection cell size in pixels
-TOPK_PER_CELL = 8     # candidates kept per cell before the round-robin
 
 
 class Features(NamedTuple):
@@ -39,78 +41,37 @@ class Features(NamedTuple):
     valid: torch.Tensor     # (N,) bool
 
 
-def _parabola(l, c, r):
-    """Vertex offset of the parabola through (-1,l),(0,c),(1,r), clamped."""
-    den = 2.0 * c - l - r
-    off = torch.where(den > 1e-6, 0.5 * (r - l) / den.clamp_min(1e-6),
-                      torch.zeros_like(den))
-    return off.clamp(-0.5, 0.5)
+# bytes per keypoint of each Features field, in field order
+_FIELD_BYTES = ((8, torch.float32, (2,)), (4, torch.float32, ()),
+                (4, torch.float32, ()), (4, torch.int32, ()),
+                (32, torch.uint8, (32,)), (1, torch.bool, ()))
+
+
+def empty_features(n: int, device) -> Features:
+    """Zeroed Features of capacity n, all six fields views of one buffer
+    (one allocation and one fill for the frame)."""
+    buf = torch.zeros(n * sum(b for b, _, _ in _FIELD_BYTES), dtype=torch.uint8,
+                      device=device)
+    fields, o = [], 0
+    for nbytes, dtype, tail in _FIELD_BYTES:
+        fields.append(buf[o:o + n * nbytes].view(dtype).view((n,) + tail))
+        o += n * nbytes
+    return Features(*fields)
 
 
 def select_level(S_raw: torch.Tensor, S: torch.Tensor, n_out: int,
                  ini_th: float, min_th: float):
     """Cell dual threshold, per-cell top-8, round-robin selection of n_out
-    keypoints and parabola subpixel offsets, from kernel A's outputs.
-
-    Returns (xy_int (n_out, 2) int32, xy_sub (n_out, 2) f32, response,
-    valid), all in level coordinates.
-    """
-    H, W = S.shape
-    dev = S.device
-    Hp = ((H + CELL - 1) // CELL) * CELL
-    Wp = ((W + CELL - 1) // CELL) * CELL
-    Sp = torch.full((Hp, Wp), -1.0, dtype=S.dtype, device=dev)
-    Sp[:H, :W] = S
-    Hc, Wc = Hp // CELL, Wp // CELL
-
-    # dual threshold per cell: the high one where it fires, else the low one
-    cell_max = Sp.reshape(Hc, CELL, Wc, CELL).amax(dim=(1, 3))
-    cell_th = torch.where(cell_max > ini_th, ini_th, min_th)
-    th_full = cell_th.repeat_interleave(CELL, 0).repeat_interleave(CELL, 1)
-    Sp = torch.where(Sp > th_full, Sp, torch.full_like(Sp, -1.0))
-
-    # per-cell top-k: the reference's K rounds of (argmax, mask) take the
-    # largest value with the first index on ties each round, which is the
-    # head of a stable descending sort (torch.topk does not promise it)
-    cells = Sp.reshape(Hc, CELL, Wc, CELL).permute(0, 2, 1, 3).reshape(
-        Hc * Wc, CELL * CELL)
-    vals, idx = torch.sort(cells, dim=1, descending=True, stable=True)
-    vals = vals[:, :TOPK_PER_CELL]                              # (C, K)
-    idx = idx[:, :TOPK_PER_CELL]
-
-    # round-robin priority: rank within the cell dominates, then response
-    rank = torch.arange(TOPK_PER_CELL, dtype=torch.float32, device=dev)[None]
-    key = torch.where(vals > 0, rank * 4096.0 - vals,
-                      torch.full_like(vals, float("inf")))
-    flat_key = key.reshape(-1)
-    sel = torch.argsort(flat_key, stable=True)[:n_out]
-    sel_valid = flat_key[sel] < 1e9
-
-    cell_id = sel // TOPK_PER_CELL
-    within = idx.reshape(-1)[sel]
-    cy = (cell_id // Wc) * CELL + within // CELL
-    cx = (cell_id % Wc) * CELL + within % CELL
-    xy = torch.stack([cx, cy], -1).to(torch.int32)
-    resp = vals.reshape(-1)[sel]
-
-    cyc = cy.clamp(1, H - 2)
-    cxc = cx.clamp(1, W - 2)
-    Sf = S_raw.reshape(-1)
-
-    def at(dy, dx):
-        return Sf[(cyc + dy) * W + (cxc + dx)]
-
-    c0 = at(0, 0)
-    dxo = _parabola(at(0, -1), c0, at(0, 1))
-    dyo = _parabola(at(-1, 0), c0, at(1, 0))
-    xy_sub = xy.float() + torch.stack([dxo, dyo], -1)
-    return xy, xy_sub, torch.where(sel_valid, resp, torch.zeros_like(resp)), sel_valid
+    keypoints and parabola subpixel offsets, from kernel A's outputs
+    (kernel J). Returns (xy_int (n_out, 2) int32, xy_sub (n_out, 2) f32,
+    response, valid), all in level coordinates."""
+    return _select.orb_select(S_raw, S, n_out, ini_th, min_th)
 
 
 def detect_level(img: torch.Tensor, n_out: int, ini_th: float, min_th: float,
                  border: int = PATCH_R):
-    """Detect up to n_out FAST keypoints on one pyramid level (kernel A +
-    selection)."""
+    """Detect up to n_out FAST keypoints on one pyramid level (kernels A +
+    J)."""
     S_raw, S = _fast_score.fast_score_nms(img, border)
     return select_level(S_raw, S, n_out, ini_th, min_th)
 
@@ -151,37 +112,24 @@ class OrbExtractor:
 
     def extract(self, img: torch.Tensor) -> Features:
         cfg = self.cfg
-        levels = img_ops.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-        out = {k: [] for k in ("xy", "resp", "ang", "oct", "desc", "valid")}
-        for lvl, (level_img, n_l) in enumerate(zip(levels, self.budgets)):
+        feats = empty_features(self.n_pad, img.device)
+        level = img
+        start = 0
+        for lvl, (shape, n_l) in enumerate(zip(self.shapes, self.budgets)):
+            level, blurred = _pyramid.pyramid_level(level, shape if lvl else None)
             if n_l <= 0:
                 continue
-            xy_i, xy_sub, resp, valid = detect_level(
-                level_img, n_l, float(cfg.ini_th_fast), float(cfg.min_th_fast))
-            blurred = img_ops.gaussian_blur(level_img)
-            ang, desc = _describe.orb_describe(level_img, blurred, xy_i,
-                                               upright=cfg.upright)
-            out["xy"].append(xy_sub * float(cfg.scale_factor ** lvl))
-            out["resp"].append(resp)
-            out["ang"].append(ang)
-            out["oct"].append(torch.full((n_l,), lvl, dtype=torch.int32,
-                                         device=img.device))
-            out["desc"].append(desc)
-            out["valid"].append(valid)
-
-        pad = self.n_pad - self.n_total
-
-        def padn(parts, fill=0):
-            x = torch.cat(parts)
-            tail = torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype,
-                              device=x.device)
-            return torch.cat([x, tail])
-
-        return Features(
-            xy=padn(out["xy"]), response=padn(out["resp"]),
-            angle=padn(out["ang"]), octave=padn(out["oct"]),
-            desc=padn(out["desc"]), valid=padn(out["valid"], fill=False),
-        )
+            S_raw, S = _fast_score.fast_score_nms(level, PATCH_R)
+            end = start + n_l
+            xy_i, _, _, _ = _select.orb_select(
+                S_raw, S, n_l, float(cfg.ini_th_fast), float(cfg.min_th_fast),
+                scale=float(cfg.scale_factor ** lvl), level=lvl,
+                out=_select.Selection(feats.xy[start:end], feats.response[start:end],
+                                      feats.octave[start:end], feats.valid[start:end]))
+            _describe.orb_describe(level, blurred, xy_i, upright=cfg.upright,
+                                   out=(feats.angle[start:end], feats.desc[start:end]))
+            start = end
+        return feats
 
     def __call__(self, img) -> Features:
         if not isinstance(img, torch.Tensor):

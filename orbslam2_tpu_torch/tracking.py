@@ -4,9 +4,10 @@
 The same FSM as the reference (NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST),
 motion-model + local-map tracking and the keyframe decision. Per frame:
 
-  extract (ops.orb: kernels A, B) -> fused cascade: up to four passes of
-  project / frustum gates / gated Hamming top-2 (kernel C) / claim
-  resolution / motion-only LM (kernel D) -> one packed result to the host.
+  extract (ops.orb: kernels I, A, J, B) -> depth sampling and undistortion
+  (kernel L) -> fused cascade: up to four passes of project / frustum gates
+  / gated Hamming top-2 (kernel C) / claim resolution / motion-only LM
+  (kernel D) -> one packed result to the host.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
 queue-1 slice): monocular and stereo initialisation (slice 6),
@@ -27,6 +28,7 @@ import torch
 from .config import SlamConfig
 from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .kernels import hamming as _hamming
+from .kernels import rgbd_depth as _rgbd_depth
 from .map.state import MapState
 from .models.camera import Camera, in_image, project, undistort_points
 from .ops import matching, orb, pose_opt
@@ -228,22 +230,9 @@ def track_frame_fused(
     ])
 
 
-def rgbd_virtual_right_u16(depth_q, depth_scale: float, kp_xy_raw,
-                           kp_xy_undist, valid, bf: float, stride: int = 1):
-    """Sample the millimetre-quantized depth map (integer tensor of the
-    host-subsampled depth[::stride, ::stride]) at the rounded keypoints and
-    derive the virtual right coordinate u_r = u - bf / d (-1 where no
-    depth). Returns (ur, depth)."""
-    H, W = depth_q.shape
-    inv = 1.0 / float(stride)
-    xi = torch.round(kp_xy_raw[:, 0] * inv).long().clamp(0, W - 1)
-    yi = torch.round(kp_xy_raw[:, 1] * inv).long().clamp(0, H - 1)
-    d = depth_q.reshape(-1)[yi * W + xi].float() * depth_scale
-    ok = valid & (d > 0)
-    neg = torch.full_like(d, -1.0)
-    dep = torch.where(ok, d, neg)
-    ur = torch.where(ok, kp_xy_undist[:, 0] - bf / d.clamp_min(1e-6), neg)
-    return ur, dep
+# kernel L under the reference's name: (xy_undist, ur, depth) of the
+# keypoints from the uint16 depth upload (depth[::stride, ::stride])
+rgbd_virtual_right_u16 = _rgbd_depth.rgbd_depth
 
 
 # ---------------------------------------------------------------------------
@@ -295,17 +284,16 @@ class Tracker:
             raise NotImplementedError(
                 "stereo matching comes with ROADMAP queue 1, slice 6")
         feats = self.extractor(img)
-        xy_dev = feats.xy
-        if self.cam.has_distortion:
-            xy_dev = undistort_points(self.cam, feats.xy)
         n = feats.xy.shape[0]
         if self._neg_ones is None or self._neg_ones.shape[0] != n:
             self._neg_ones = torch.full((n,), -1.0, device=self.device)
         dev = dict(
-            xy=xy_dev, desc=feats.desc, octave=feats.octave,
+            xy=feats.xy, desc=feats.desc, octave=feats.octave,
             angle=feats.angle, valid=feats.valid,
             ur=self._neg_ones, depth=self._neg_ones,
         )
+        if depth_map is None and self.cam.has_distortion:
+            dev["xy"] = undistort_points(self.cam, feats.xy)
         if depth_map is not None:
             # millimetre quantization and stride subsampling as the reference
             # uploads the depth map, so both packages read the same depths
@@ -317,10 +305,10 @@ class Tracker:
             d_u16 = np.where(
                 (d > 0) & (d * scale < 65535.0), d * scale, 0.0
             ).astype(np.uint16)
-            depth_q = torch.from_numpy(d_u16.astype(np.int32)).to(self.device)
-            dev["ur"], dev["depth"] = rgbd_virtual_right_u16(
-                depth_q, self._f32(1.0 / scale), feats.xy, xy_dev,
-                feats.valid, self.cam.bf, stride=stride,
+            # kernel L also undistorts the keypoints
+            dev["xy"], dev["ur"], dev["depth"] = rgbd_virtual_right_u16(
+                torch.from_numpy(d_u16).to(self.device), self._f32(1.0 / scale),
+                feats.xy, feats.valid, self.cam, stride=stride,
             )
         fid = self._next_frame_id
         self._next_frame_id += 1

@@ -3,7 +3,8 @@
 The tests hand both packages the same camera, map and frame: the JAX
 package's state is read out as numpy arrays (``np.asarray`` of each field)
 and converted here. Nothing in this module imports JAX or the JAX package;
-the BRIEF test pattern is read from the reference's asset file by path.
+the BRIEF test pattern is the port's own copy of the reference's trained
+asset (``orbslam2_tpu_torch/assets/brief_pattern.npz``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from ..map.state import MapState
 from ..models.camera import Camera
 
 BRIEF_PATTERN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "orbslam2_tpu", "assets", "brief_pattern.npz")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+    "brief_pattern.npz")
 
 _CAMERA_FIELDS = ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "bf")
 
@@ -29,7 +30,8 @@ _CAMERA_FIELDS = ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "bf")
 @functools.lru_cache()
 def brief_pattern() -> Tuple[np.ndarray, np.ndarray]:
     """The 256 steered-BRIEF test pairs (pa, pb), each (256, 2) int32 (x, y),
-    as trained for the reference package (its ``assets/brief_pattern.npz``)."""
+    as trained for the reference package (a copy of its
+    ``assets/brief_pattern.npz``)."""
     with np.load(BRIEF_PATTERN_PATH) as data:
         return data["pa"].astype(np.int32), data["pb"].astype(np.int32)
 

@@ -16,7 +16,8 @@ from orbslam2_tpu_torch import kernels
 from orbslam2_tpu_torch.config import CameraConfig, ExtractorConfig, SlamConfig
 from orbslam2_tpu_torch.kernels import (ba_accept, ba_linearize, ba_solve,
                                         ba_update_cost, describe, fast_score,
-                                        hamming, pose_lm)
+                                        hamming, orb_select, point_attrs,
+                                        pose_lm, pyramid, rgbd_depth)
 from orbslam2_tpu_torch.models.camera import Camera
 from orbslam2_tpu_torch.ops import ba
 from orbslam2_tpu_torch.ops import image as img_ops
@@ -218,3 +219,155 @@ def test_slice_runs_through_kernels(cuda):
     for i, (img, depth) in enumerate(frames):
         assert slam.track_rgbd(img, depth, i / 30.0) is not None
     assert all(n > 0 for n in kernels.launch_counts().values())
+
+
+def _frame640(dev):
+    """The main path's frame: rendered 640x480, and its depth in metres."""
+    Kb = np.array([[520.0, 0, 320], [0, 520, 240], [0, 0, 1]], np.float32)
+    frames, _ = render_sequence(1, Kb, width=640, height=480, with_depth=True)
+    img, depth = frames[0]
+    return torch.from_numpy(img.astype(np.float32)).to(dev), depth
+
+
+def _pyramid(img):
+    shapes = img_ops.pyramid_shapes(480, 640, 8, 1.2)
+    levels, prev = [], img
+    for lvl, shape in enumerate(shapes):
+        lk, bk = pyramid.pyramid_level(prev, shape if lvl else None)
+        lp, bp = pyramid.pyramid_level_plain(prev, shape if lvl else None)
+        assert torch.equal(lk, lp) and torch.equal(bk, bp), lvl
+        levels.append(lk)
+        prev = lk
+    return levels
+
+
+def test_pyramid_level_bit_exact(cuda):
+    """Kernel I at every level of the 640x480 pyramid: level and blur
+    bit-exact, and the routed ops go through it."""
+    img, _ = _frame640(cuda)
+    levels = _pyramid(img)
+    kernels.reset_launches()
+    assert torch.equal(img_ops.gaussian_blur(levels[3]),
+                       pyramid.blur_plain(levels[3]))
+    assert torch.equal(img_ops.resize_bilinear(levels[0], (400, 533)), levels[1])
+    assert kernels.launch_counts()["pyramid_level"] == 2
+
+
+@pytest.mark.parametrize("scene", ["rendered", "one_square"])
+def test_orb_select_bit_exact(cuda, scene):
+    """Kernel J on every level, every slot against the plain selection,
+    through the feature buffers as the extractor writes them; on the
+    rendered frame, and on a flat frame with one bright square, whose few
+    corners leave most slots invalid."""
+    img, _ = _frame640(cuda)
+    if scene == "one_square":
+        img[:] = 100.0
+        img[200:260, 300:360] = 200.0
+    budgets = orb.level_budgets(1000, 8, 1.2)
+    n_invalid = 0
+    for lvl, (level, n) in enumerate(zip(_pyramid(img), budgets)):
+        raw, nms = fast_score.fast_score_nms(level, orb.PATCH_R)
+        f = orb.empty_features(n, cuda)
+        xk = orb_select.orb_select(raw, nms, n, 20.0, 7.0, 1.2 ** lvl, lvl,
+                                   out=orb_select.Selection(f.xy, f.response,
+                                                            f.octave, f.valid))[0]
+        xp, xs, rp, vp = orb_select.orb_select_plain(raw, nms, n, 20.0, 7.0)
+        assert torch.equal(xk, xp)
+        assert torch.equal(f.xy, xs * float(1.2 ** lvl))
+        assert torch.equal(f.response, rp) and torch.equal(f.valid, vp)
+        assert bool((f.octave == lvl).all())
+        n_invalid += int((~vp).sum())
+    assert (n_invalid > 0) == (scene == "one_square")
+
+
+def test_rgbd_depth_bit_exact(cuda):
+    """Kernel L on the frame's keypoints and its stride-2 uint16 depth, with
+    and without distortion."""
+    img, depth = _frame640(cuda)
+    ext = orb.OrbExtractor(ExtractorConfig(n_features=1000, n_levels=8), 480, 640,
+                           device=cuda)
+    f = ext(img)
+    d = depth[::2, ::2]
+    d_u16 = np.where((d > 0) & (d * 1e3 < 65535.0), d * 1e3, 0.0).astype(np.uint16)
+    depth_q = torch.from_numpy(d_u16).to(cuda)
+    for c in (Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0),
+              Camera.create(520.0, 520.0, 320.0, 240.0, k1=-0.12, k2=0.03,
+                            p1=0.001, p2=-0.0008, k3=0.01, bf=52.0)):
+        out_k = rgbd_depth.rgbd_depth(depth_q, 1e-3, f.xy, f.valid, c, stride=2)
+        out_p = rgbd_depth.rgbd_depth_plain(depth_q, 1e-3, f.xy, f.valid, c, stride=2)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+        assert int((out_k[2] > 0).sum()) > 500
+
+
+@pytest.mark.parametrize("O", [8, 32])
+def test_point_attrs_matches_plain(cuda, O):
+    """Kernel N at P=512: descriptors and reference keyframes exact (random
+    descriptors tie in the median often), normals and band within 1e-5."""
+    rng = np.random.default_rng(O)
+    Kf, Nf, P = 64, 1024, 512
+    n_obs = rng.integers(1, O + 1, P)
+    obs_kf = np.full((P, O), -1, np.int16)
+    obs_ft = np.full((P, O), -1, np.int16)
+    for p in range(P):
+        obs_kf[p, :n_obs[p]] = rng.choice(Kf, n_obs[p], replace=False)
+        obs_ft[p, :n_obs[p]] = rng.integers(0, Nf, n_obs[p])
+    poses = np.tile(np.eye(4, dtype=np.float32), (Kf, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 0.5, (Kf, 3))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(rng.integers(0, 256, (Kf, Nf, 32)).astype(np.uint8)),
+            t(rng.integers(0, 8, (Kf, Nf)).astype(np.int32)), t(poses), t(obs_kf),
+            t(obs_ft), t(rng.uniform(-3, 3, (P, 3)).astype(np.float32) + 5),
+            t(np.where(rng.random(P) < 0.8, obs_kf[:, 0], -1).astype(np.int32)),
+            1.2, 7.0)
+    ok = point_attrs.point_attributes(*args)
+    op = point_attrs.point_attributes_plain(*args)
+    assert torch.equal(ok[:, :32], op[:, :32]) and torch.equal(ok[:, 37], op[:, 37])
+    torch.testing.assert_close(ok[:, 32:37], op[:, 32:37], rtol=1e-5, atol=1e-5)
+
+
+def test_front_end_kernels_refuse(cuda):
+    """Kernels I, J, L and N raise on what they do not take; nothing falls
+    back to the plain version."""
+    img, depth = _frame640(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        pyramid.pyramid_level(img.double())
+    raw, nms = fast_score.fast_score_nms(img, orb.PATCH_R)
+    with pytest.raises(ValueError, match="n_out"):
+        orb_select.orb_select(raw, nms, 2401, 20.0, 7.0)
+    big = torch.zeros((1300, 2600), device=cuda)
+    with pytest.raises(ValueError, match="keys"):
+        orb_select.orb_select(big, big, 10, 20.0, 7.0)
+    xy = torch.zeros((16, 2), device=cuda)
+    valid = torch.ones(16, dtype=torch.bool, device=cuda)
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0)
+    with pytest.raises(ValueError, match="uint16"):
+        rgbd_depth.rgbd_depth(torch.zeros((240, 320), dtype=torch.int32, device=cuda),
+                              1e-3, xy, valid, cam)
+    desc = torch.zeros((4, 8, 32), dtype=torch.uint8, device=cuda)
+    octv = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    pose = torch.eye(4, device=cuda).expand(4, 4, 4).contiguous()
+    pos = torch.zeros((2, 3), device=cuda)
+    ref = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int16"):
+        point_attrs.point_attributes(desc, octv, pose, torch.zeros((2, 8), dtype=torch.int32, device=cuda),
+                                     torch.zeros((2, 8), dtype=torch.int32, device=cuda),
+                                     pos, ref, 1.2, 7.0)
+    obs = torch.zeros((2, 33), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="O=33"):
+        point_attrs.point_attributes(desc, octv, pose, obs, obs, pos, ref, 1.2, 7.0)
+
+
+def test_extractor_runs_only_its_kernels(cuda):
+    """From the host image to Features, the extractor's device work is
+    kernels I, A, J and B, the fill of its zeroed buffer and the image's
+    upload and conversion: no plain resize, blur, selection or cat."""
+    import chip_smoke
+
+    Kb = np.array([[520.0, 0, 320], [0, 520, 240], [0, 0, 1]], np.float32)
+    frame = render_sequence(1, Kb, width=640, height=480)[0][0]
+    ext = orb.OrbExtractor(ExtractorConfig(n_features=1000, n_levels=8), 480, 640,
+                           device=cuda)
+    names = chip_smoke.extraction_kernels(ext, frame)
+    for mod in (pyramid, fast_score, orb_select, describe):
+        assert any(mod.FUNCTION in n for n in names), mod.NAME

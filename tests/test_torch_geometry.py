@@ -161,9 +161,10 @@ def test_linalg_small():
     _close(jls.solve_spd_small(_j(S), _j(b)), tls.solve_spd_small(_t(S), _t(b)))
 
 
-# Pyramid / blur: grey levels in [0, 255]; the resize is two float32 matrix
-# products whose summation order (and FMA use) differs between XLA and the
-# BLAS PyTorch calls, so levels agree to 1e-3 grey levels, not bit for bit.
+# Pyramid / blur: grey levels in [0, 255]; the blur is bit-exact, the resize
+# rounds its two products where XLA's dense matrix product fuses one into an
+# FMA (see TWO_TAP_TOL below), so levels agree to 1e-3 grey levels, not bit
+# for bit.
 IMG_TOL = 1e-3
 
 
@@ -197,6 +198,36 @@ def test_build_pyramid():
     assert [tuple(x.shape) for x in lv_t] == [tuple(x.shape) for x in lv_j]
     for a, b in zip(lv_j, lv_t):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=IMG_TOL)
+
+
+# The two-tap resize rounds each product and the sum once; XLA's dot over the
+# dense matrix accumulates them its own way (an FMA in some blockings), so a
+# pixel may differ from the reference by a few float32 ulps of a grey level
+# (the ulp of 128-255 is 1.5e-5); most pixels are identical.
+TWO_TAP_TOL = 1e-4
+
+
+def test_two_tap_resize():
+    """The resize as two taps per output row and column (kernel I's plain
+    version) reproduces the reference's interpolation matrices, and its
+    levels agree with the reference's matrix products to TWO_TAP_TOL."""
+    from orbslam2_tpu_torch.kernels import pyramid as tpyr
+
+    for n_in, n_out in [(240, 200), (320, 267), (139, 116), (480, 400), (7, 5)]:
+        idx, w = tpyr.resize_taps(n_in, n_out)
+        M = np.zeros((n_out, n_in), np.float32)
+        np.add.at(M, (np.arange(n_out)[:, None], idx), w)
+        np.testing.assert_array_equal(M, jimg._resize_matrix(n_in, n_out))
+    img = _image(12)
+    lv_j = jimg.build_pyramid(_j(img), 8, 1.2)
+    lv_t = timg.build_pyramid(_t(img), 8, 1.2)
+    for a, b in zip(lv_j[1:], lv_t[1:]):
+        a, b = np.asarray(a), b.numpy()
+        np.testing.assert_allclose(b, a, rtol=0, atol=TWO_TAP_TOL)
+        assert (a == b).mean() > 0.5
+    np.testing.assert_allclose(timg.resize_bilinear(_t(img), (139, 185)).numpy(),
+                               np.asarray(jimg.resize_bilinear(_j(img), (139, 185))),
+                               rtol=0, atol=TWO_TAP_TOL)
 
 
 def test_evaluation_metrics():

@@ -5,6 +5,7 @@ and fuse matching of local mapping on a rendered keyframe pair."""
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -56,6 +57,47 @@ def test_point_attributes():
     np.testing.assert_array_equal(out_t[:, :32], out_j[:, :32])
     np.testing.assert_array_equal(out_t[:, 37], out_j[:, 37])
     np.testing.assert_allclose(out_t[:, 32:37], out_j[:, 32:37], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("O", [16, 32])
+def test_point_attributes_ties(O):
+    """Kernel N's plain version at the wider observation buckets, with
+    descriptors drawn from a pool of 12 so that medians tie within a row and
+    the lowest medians tie across slots (the first slot wins): descriptors
+    and reference keyframes exact, normals and band 1e-5."""
+    rng = np.random.default_rng(24 + O)
+    Kf, N, P = 40, 128, 300
+    pool = rng.integers(0, 256, (12, 32)).astype(np.uint8)
+    kf_desc = pool[rng.integers(0, 12, (Kf, N))]
+    kf_oct = rng.integers(0, 8, (Kf, N)).astype(np.int32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (Kf, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 0.5, (Kf, 3))
+    n_obs = rng.integers(1, O + 1, P)
+    obs_kf = np.full((P, O), -1, np.int16)
+    obs_ft = np.full((P, O), -1, np.int16)
+    for p in range(P):
+        obs_kf[p, :n_obs[p]] = rng.choice(Kf, n_obs[p], replace=False)
+        obs_ft[p, :n_obs[p]] = rng.integers(0, N, n_obs[p])
+    pos = rng.uniform(-3, 3, (P, 3)).astype(np.float32) + np.float32([0, 0, 5])
+    ref = np.where(rng.random(P) < 0.8, obs_kf[:, 1], -1).astype(np.int32)
+    args = (kf_desc, kf_oct, poses, obs_kf, obs_ft, pos, ref)
+    out_j = np.asarray(jpa.point_attributes(*(jnp.asarray(a) for a in args),
+                                            jnp.float32(1.2), jnp.float32(7.0)))
+    out_t = tpa.point_attributes(*(_t(a) for a in args), 1.2, 7.0).numpy()
+    np.testing.assert_array_equal(out_t[:, :32], out_j[:, :32])
+    np.testing.assert_array_equal(out_t[:, 37], out_j[:, 37])
+    np.testing.assert_allclose(out_t[:, 32:37], out_j[:, 32:37], rtol=1e-5, atol=1e-5)
+    # the case ties: some row's median value occurs more than once in it
+    d = np.unpackbits(kf_desc[np.maximum(obs_kf, 0), np.maximum(obs_ft, 0)], axis=-1)
+    dm = (d[:, :, None] != d[:, None, :]).sum(-1)
+    live = obs_kf >= 0
+    ties = 0
+    for p in range(P):
+        k = n_obs[p]
+        if k >= 3:
+            row = np.sort(dm[p, 0, :k])
+            ties += int((row == row[(k - 1) // 2]).sum() > 1)
+    assert ties > 10 and live.sum(1).max() > 8
 
 
 def _ba_problem(Kc, M, O, seed):

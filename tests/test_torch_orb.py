@@ -78,15 +78,30 @@ def test_fast_score_nms_matches_reference(i):
     np.testing.assert_array_equal(S_t.numpy(), np.where(S >= pooled, S, -1.0))
 
 
-@pytest.mark.parametrize("i", [0, 1, 2, 3])
-def test_detect_level0_bit_exact(i):
-    """Level 0 is an integer image: detection is bit-exact, subpixel
-    offsets included (same single float32 ops)."""
-    img = _frames()[i]
-    out_j = jorb.detect_level(jnp.asarray(img), 209, 20.0, 7.0)
-    out_t = torb.detect_level(torch.from_numpy(img), 209, 20.0, 7.0)
+@functools.lru_cache()
+def _jax_levels(i):
+    """The JAX package's own 4-level pyramid of frame i, as numpy."""
+    from orbslam2_tpu.ops import image as jimg
+
+    return [np.asarray(L) for L in jimg.build_pyramid(jnp.asarray(_frames()[i]), 4, 1.2)]
+
+
+@pytest.mark.parametrize("i,lvl", [pytest.param(i, 0, id=str(i)) for i in range(4)]
+                         + [pytest.param(i, lvl, id=f"{i}-level{lvl}")
+                            for i in (0, 2) for lvl in (1, 2, 3)])
+def test_detect_level0_bit_exact(i, lvl):
+    """Detection (kernel A and kernel J's plain version) is bit-exact in
+    every slot, invalid ones and subpixel offsets included (the same single
+    float32 ops): on the integer level-0 image, and on the JAX package's own
+    levels 1-3 (so the resize is out of the comparison), whose fractional
+    scores exercise J's float32 keys and the parabola."""
+    img = _frames()[i] if lvl == 0 else _jax_levels(i)[lvl]
+    n_out = 209 if lvl == 0 else jorb.level_budgets(500, 4, 1.2)[lvl]
+    out_j = jorb.detect_level(jnp.asarray(img), n_out, 20.0, 7.0)
+    out_t = torb.detect_level(torch.from_numpy(img), n_out, 20.0, 7.0)
     for a, b in zip(out_j, out_t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert np.asarray(out_j[3]).sum() > 0.5 * n_out
 
 
 @pytest.mark.parametrize("i", [0, 1, 2, 3])

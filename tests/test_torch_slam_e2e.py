@@ -181,3 +181,39 @@ def test_port_never_imports_jax():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """No module of the port names a path inside ``orbslam2_tpu/`` (a
+    quoted ``"orbslam2_tpu"`` path component), and loading the port's
+    assets, with the JAX package blocked, opens no file under it."""
+    pkg = os.path.join(REPO, "orbslam2_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                for bad in ('"orbslam2_tpu"', "'orbslam2_tpu'"):
+                    assert bad not in src, (f, bad)
+    code = (
+        "import builtins, io, os, sys\n"
+        "for name in ('jax', 'jaxlib', 'orbslam2_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "opened = []\n"
+        "real_open = builtins.open\n"
+        "def spy(file, *a, **k):\n"
+        "    opened.append(os.path.abspath(os.fspath(file)))\n"
+        "    return real_open(file, *a, **k)\n"
+        "builtins.open = io.open = spy\n"
+        "from orbslam2_tpu_torch.kernels import describe\n"
+        "from orbslam2_tpu_torch.utils.convert import brief_pattern\n"
+        "pa, pb = brief_pattern()\n"
+        "assert describe._pattern_xy().shape == (512, 2)\n"
+        f"bad = [p for p in opened if p.startswith({os.path.join(REPO, 'orbslam2_tpu') + os.sep!r})]\n"
+        "assert opened and not bad, (opened, bad)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,6 +1,7 @@
 """Parity of the port's tracking path against the JAX package on the CPU:
 matching (kernel C's plain version), motion-only LM (kernel D's plain
-version), the depth sampling and the whole fused cascade."""
+version), the depth sampling and undistortion (kernel L's plain version) and
+the whole fused cascade."""
 
 import functools
 
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 
 from orbslam2_tpu import tracking as jtrack
 from orbslam2_tpu.config import ExtractorConfig as JExtractorConfig
+from orbslam2_tpu.models import camera as jcam
 from orbslam2_tpu.models.camera import Camera as JCamera
 from orbslam2_tpu.ops import matching as jmatch
 from orbslam2_tpu.ops import orb as jorb
@@ -154,25 +156,55 @@ def test_optimize_pose(n, n_valid):
     assert np.abs(rt.Tcw.numpy()[:3, 3] - T_true[:3, 3]).max() < 5e-3
 
 
-def test_rgbd_virtual_right():
-    rng = np.random.default_rng(14)
+def _depth_case(seed=14, n=512):
+    """A stride-2 uint16 millimetre depth map of a 320x240 frame (10% holes)
+    and n keypoints, 90% valid."""
+    rng = np.random.default_rng(seed)
     d = rng.uniform(0, 6, (H // 2, W // 2)).astype(np.float32)
     d[rng.random(d.shape) < 0.1] = 0
-    d_u16 = (d * 1000).astype(np.uint16)
-    xy = np.stack([rng.uniform(0, W, 512), rng.uniform(0, H, 512)], 1).astype(np.float32)
-    valid = rng.random(512) < 0.9
+    xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
+    return (d * 1000).astype(np.uint16), xy, rng.random(n) < 0.9
+
+
+def test_rgbd_virtual_right():
+    """Kernel L's plain version reads the uint16 map as the reference
+    uploads it and divides as XLA does (IEEE): depth and u_right are
+    bit-exact; without distortion the keypoints pass through."""
+    d_u16, xy, valid = _depth_case()
     scale = np.float32(1.0 / np.float32(1e3))
     urj, dj = jtrack._rgbd_virtual_right_u16(
         jnp.asarray(d_u16), jnp.float32(scale), jnp.asarray(xy), jnp.asarray(xy),
         jnp.asarray(valid), jnp.float32(26.0), stride=2)
-    urt, dt = ttrack.rgbd_virtual_right_u16(
-        _t(d_u16.astype(np.int32)), float(scale), _t(xy), _t(xy), _t(valid), 26.0,
-        stride=2)
+    xyt, urt, dt = ttrack.rgbd_virtual_right_u16(
+        _t(d_u16), float(scale), _t(xy), _t(valid), TCamera.create(**CAM), stride=2)
+    assert (np.asarray(dj) > 0).mean() > 0.7
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
-    # u - bf / d: XLA evaluates the division as a reciprocal product, so
-    # u_right agrees to a float32 rounding at pixel scale (the ulp of a
-    # 320-px coordinate is 3.1e-5)
-    np.testing.assert_allclose(urt.numpy(), np.asarray(urj), rtol=0, atol=3.1e-5)
+    np.testing.assert_array_equal(urt.numpy(), np.asarray(urj))
+    np.testing.assert_array_equal(xyt.numpy(), xy)
+
+
+def test_rgbd_virtual_right_undistorts():
+    """With a distorting camera kernel L's plain version also undistorts the
+    keypoints: depths exact (sampled at the raw position), the undistorted
+    keypoints and u_right within two float32 ulps of a 320-px coordinate
+    (6.1e-5: XLA may round a step of the fixed-point iterations
+    differently)."""
+    cam = dict(CAM, fy=255.0, cx=161.0, cy=119.5, k1=-0.12, k2=0.03, p1=0.001,
+               p2=-0.0008, k3=0.01)
+    jc, tc = JCamera.create(**cam), TCamera.create(**cam)
+    assert tc.has_distortion
+    d_u16, xy, valid = _depth_case(15)
+    scale = np.float32(1.0 / np.float32(1e3))
+    xy_uj = jcam.undistort_points(jc, jnp.asarray(xy))
+    urj, dj = jtrack._rgbd_virtual_right_u16(
+        jnp.asarray(d_u16), jnp.float32(scale), jnp.asarray(xy), xy_uj,
+        jnp.asarray(valid), jnp.float32(26.0), stride=2)
+    xyt, urt, dt = ttrack.rgbd_virtual_right_u16(
+        _t(d_u16), float(scale), _t(xy), _t(valid), tc, stride=2)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    np.testing.assert_allclose(xyt.numpy(), np.asarray(xy_uj), rtol=0, atol=6.1e-5)
+    np.testing.assert_allclose(urt.numpy(), np.asarray(urj), rtol=0, atol=6.1e-5)
+    assert np.abs(xyt.numpy() - xy).max() > 1.0  # the camera does distort
 
 
 @functools.lru_cache()

@@ -371,3 +371,27 @@ def test_extractor_runs_only_its_kernels(cuda):
     names = chip_smoke.extraction_kernels(ext, frame)
     for mod in (pyramid, fast_score, orb_select, describe):
         assert any(mod.FUNCTION in n for n in names), mod.NAME
+
+
+@pytest.mark.parametrize("hw", [(376, 1241), (720, 1280)])
+def test_front_end_at_larger_frames(cuda, hw):
+    """KITTI-sized and 720p frames: kernel I on the first pyramid levels and
+    kernel J's selection, whose keys (3744 and 7360) need more than the
+    default 48 KB of shared memory, stay bit-exact against their plain
+    versions."""
+    H_, W_ = hw
+    Kb = np.array([[W_ * 0.8, 0, W_ / 2], [0, W_ * 0.8, H_ / 2], [0, 0, 1]], np.float32)
+    img = torch.from_numpy(render_sequence(1, Kb, width=W_, height=H_)[0][0]
+                           .astype(np.float32)).to(cuda)
+    shapes = img_ops.pyramid_shapes(H_, W_, 3, 1.2)
+    prev = img
+    for lvl, shape in enumerate(shapes):
+        lk, bk = pyramid.pyramid_level(prev, shape if lvl else None)
+        lp, bp = pyramid.pyramid_level_plain(prev, shape if lvl else None)
+        assert torch.equal(lk, lp) and torch.equal(bk, bp), lvl
+        raw, nms = fast_score.fast_score_nms(lk, orb.PATCH_R)
+        n = min(400, orb_select.n_keys(*lk.shape))
+        for a, b in zip(orb_select.orb_select(raw, nms, n, 20.0, 7.0),
+                        orb_select.orb_select_plain(raw, nms, n, 20.0, 7.0)):
+            assert torch.equal(a, b), lvl
+        prev = lk

@@ -16,7 +16,12 @@ Phases, each printing one line:
      BA schedule, kernels against the plain schedule
      (utils/ba_parity.compare), at K=16/M=1024/O=8 (5 iterations + outlier
      round, the local mapper's last chunk) and at the reference bench's
-     K=64/M=4096/O=8 (10 iterations + outlier round);
+     K=64/M=4096/O=8 (10 iterations + outlier round); the front end's
+     kernels I (every level of the pyramid) and J (the selection on every
+     level) bit-exact, L bit-exact with and without distortion, N on
+     seeded batches at P=512, O=8 and O=32; and, by profiler, that the
+     extraction from a host image runs no device work but I, A, J, B, a
+     buffer fill and the upload;
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
      over 36 rendered frames and checks it is never lost, makes >= 3
      keyframes, keeps ATE under 0.035 m, and launched every kernel.

@@ -12,14 +12,15 @@ Phases, each printing one line:
      steps E-H on the local-BA window K=16, M=1024, O=8); times one call
      of each kernel's wrapper and of its plain version between CUDA
      events, and the kernel alone on the device (torch.profiler's device
-     events), and computes its bound from the run's inputs; then the whole
+     events, a profile counting only if it saw every launch), and computes its
+     bound from the run's inputs; then the whole
      BA schedule, kernels against the plain schedule
      (utils/ba_parity.compare), at K=16/M=1024/O=8 (5 iterations + outlier
      round, the local mapper's last chunk) and at the reference bench's
      K=64/M=4096/O=8 (10 iterations + outlier round); the front end's
      kernels I (every level of the pyramid) and J (the selection on every
      level) bit-exact, L bit-exact with and without distortion, N on
-     seeded batches at P=512, O=8 and O=32; and, by profiler, that the
+     seeded batches at P=512, O=8, 32 and 64; and, by profiler, that the
      extraction from a host image runs no device work but I, A, J, B, a
      buffer fill and the upload;
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
@@ -81,11 +82,13 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, reps=20, per_call=1):
-    """Mean device time in ms per call of ``fn`` of the CUDA kernel named
-    ``kernel`` over ``reps`` calls (torch.profiler's device events), each
-    call launching it ``per_call`` times; with ``kernel=None``, of all
-    device events."""
+profile_retries = []   # (kernel, events seen, launches) of discarded profiles
+
+
+def device_events(fn, kernel, reps=20):
+    """(device ms, events) of the CUDA kernels whose name holds ``kernel``
+    (every device event with ``kernel=None``) over ``reps`` calls of
+    ``fn``, from torch.profiler's device events."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -96,15 +99,24 @@ def device_ms(fn, kernel, reps=20, per_call=1):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and (kernel is None or kernel in e.key)]
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    if kernel is None:
-        return total / reps
-    # the mean over the launches the profiler saw (it may miss one of a
-    # run of short kernels), times the launches in a call
-    count = sum(e.count for e in events)
-    check(0 < count <= reps * per_call,
-          f"{kernel}: {count} device events for {reps} x {per_call} launches")
-    return total / count * per_call
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
+    """Device time in ms per call of ``fn`` of the CUDA kernel named
+    ``kernel`` over ``reps`` calls, each launching it ``per_call`` times
+    (with ``kernel=None``, of all device events). Only a profile that saw
+    every one of the kernel's launches counts: one that missed any is
+    recorded in ``profile_retries`` and taken again, ``attempts`` times at
+    most."""
+    for _ in range(attempts):
+        total, count = device_events(fn, kernel, reps)
+        if kernel is None or count == reps * per_call:
+            return total / reps
+        profile_retries.append((kernel, count, reps * per_call))
+    raise AssertionError(f"{kernel}: {profile_retries[-attempts:]} device "
+                         f"events for launches in {attempts} profiles")
 
 
 def check(cond, msg):
@@ -312,8 +324,8 @@ def front_rows(dev, record, img0, depth0, feats, cam):
     """Kernels I, J, L and N against their plain versions at the main path's
     shapes: the 8-level pyramid of the 640x480 frame, the selection on every
     level, the depth sampling of the frame's N=1024 keypoints (with and
-    without distortion), and a seeded point-attribute batch at P=512, O=8
-    and O=32."""
+    without distortion), and a seeded point-attribute batch at P=512, O=8,
+    32 and 64."""
     import torch.nn.functional as F
 
     from orbslam2_tpu_torch.kernels import (fast_score, orb_select, point_attrs,
@@ -398,15 +410,26 @@ def front_rows(dev, record, img0, depth0, feats, cam):
     check(same, f"kernel J not bit-exact (xy max err {err_j})")
     n_valid = int(fk.valid.sum())
     keys = sum(orb_select.n_keys(*lv.shape) for lv in levels)
+    # the raw score map is read only at each slot's parabola taps: count
+    # the distinct pixels, clamped as the kernel clamps them
+    taps = torch.tensor([[0, 0], [0, -1], [0, 1], [-1, 0], [1, 0]], device=dev)
+    raw_px, s = 0, 0
+    for lv, n in zip(levels, budgets):
+        h, w = lv.shape
+        y = xk[s:s + n, 1:2].clamp(1, h - 2) + taps[:, 0]       # (n, 5)
+        x = xk[s:s + n, 0:1].clamp(1, w - 2) + taps[:, 1]
+        raw_px += int(torch.unique(y * w + x).numel())
+        s += n
     record(orb_select, err_j, lambda: select(True),
            cuda_ms(lambda: select(False)),
            f"8 levels, {n_tot} slots ({n_valid} valid), {keys} keys, every slot "
            f"bit-exact",
-           # both score maps read once, the slots written (xy_int, xy,
-           # response, octave, valid); per pixel the cell max, threshold and
-           # 8 rounds of compare-select (19 ops); per key the bitonic sort's
+           # the NMS map read once, the raw map at the distinct parabola
+           # taps, the slots written (xy_int, xy, response, octave, valid);
+           # per pixel the cell max, threshold and 8 rounds of
+           # compare-select (19 ops); per key the bitonic sort's
            # log2(n)(log2(n)+1)/2 compare-exchanges
-           n_bytes=2 * 4 * px_out + 25 * n_tot,
+           n_bytes=4 * px_out + 4 * raw_px + 25 * n_tot,
            n_ops=19 * px_out + sum(
                k * int(np.log2(k)) * (int(np.log2(k)) + 1) // 2
                for k in (1 << int(np.ceil(np.log2(orb_select.n_keys(*lv.shape))))
@@ -447,6 +470,9 @@ def front_rows(dev, record, img0, depth0, feats, cam):
     kf_pose = torch.from_numpy(poses).to(dev)
 
     def batch(O):
+        """Kernel N's arguments at P points and O slots, and the batch's
+        (live observations, sum of n_obs^2, distinct keyframes, distinct
+        (keyframe, feature) pairs)."""
         n_obs = rng.integers(1, O + 1, P)
         obs_kf = np.full((P, O), -1, np.int16)
         obs_ft = np.full((P, O), -1, np.int16)
@@ -456,12 +482,15 @@ def front_rows(dev, record, img0, depth0, feats, cam):
         pos = rng.uniform(-3, 3, (P, 3)).astype(np.float32) + np.float32([0, 0, 5])
         ref = np.where(rng.random(P) < 0.8, obs_kf[:, 0], -1).astype(np.int32)
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        live = obs_kf >= 0
+        pairs = obs_kf[live].astype(np.int64) * Nf + obs_ft[live]
         return (kf_desc, kf_oct, kf_pose, t(obs_kf), t(obs_ft), t(pos), t(ref),
-                1.2, 7.0), int(n_obs.sum())
+                1.2, 7.0), (int(n_obs.sum()), int((n_obs ** 2).sum()),
+                            len(np.unique(obs_kf[live])), len(np.unique(pairs)))
 
     err_n = 0.0
-    for O in (8, 32):
-        n_args, n_live = batch(O)
+    for O in (8, 32, 64):
+        n_args, n_work = batch(O)
         ok = point_attrs.point_attributes(*n_args)
         op = point_attrs.point_attributes_plain(*n_args)
         check(torch.equal(ok[:, :32], op[:, :32]) and torch.equal(ok[:, 37], op[:, 37]),
@@ -471,17 +500,19 @@ def front_rows(dev, record, img0, depth0, feats, cam):
         check(e <= 1e-5, f"kernel N normals / band differ by {e} at O={O}")
         err_n = max(err_n, (ok - op).abs().max().item())
         if O == 8:
-            args8, live8 = n_args, n_live
+            args8, (live8, pairs8, kfs8, descs8) = n_args, n_work
     record(point_attrs, err_n, lambda: point_attrs.point_attributes(*args8),
            cuda_ms(lambda: point_attrs.point_attributes_plain(*args8)),
-           f"P={P}, O=8 ({live8} observations) and O=32: descriptors and ref_kf "
+           f"P={P}, O=8 ({live8} observations), 32 and 64: descriptors and ref_kf "
            f"exact, normals and band within 1e-5 (timed at O=8)",
-           # slots read, each live observation's descriptor, keyframe pose
-           # and octave, the points read once, (P, 38) written; per ordered
-           # pair of slots 8 xor + popc + add (24 ops), the median's count
-           # (2 ops per pair), ~40 ops per slot for the normal
-           n_bytes=P * 8 * 4 + live8 * (32 + 48 + 4) + P * (12 + 4 + 38 * 4),
-           n_ops=P * (8 * 8 * 26 + 8 * 40))
+           # the slots read, each distinct (keyframe, feature) descriptor and
+           # each distinct keyframe's R and t once, one octave per point
+           # (its band's slot), the points read once, (P, 38) written; per
+           # ordered pair of live slots 8 xor + popc + add (24 ops) and the
+           # median's compare and count (2), ~40 ops per live slot for the
+           # normal
+           n_bytes=P * 8 * 4 + descs8 * 32 + kfs8 * 48 + P * (4 + 12 + 4 + 38 * 4),
+           n_ops=26 * pairs8 + 40 * live8)
 
 
 def main():
@@ -493,7 +524,8 @@ def main():
     # printing anything
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.config import CameraConfig, ExtractorConfig, SlamConfig
-    from orbslam2_tpu_torch.kernels import build, describe, fast_score, hamming, pose_lm
+    from orbslam2_tpu_torch.kernels import (build, describe, fast_score, hamming,
+                                            orb_select, pose_lm)
     from orbslam2_tpu_torch.models.camera import Camera
     from orbslam2_tpu_torch.ops import image as img_ops
     from orbslam2_tpu_torch.ops import orb
@@ -561,7 +593,7 @@ def main():
 
     # B: IC angle + BRIEF for the level-0 budget of keypoints
     budget0 = orb.level_budgets(1000, 8, 1.2)[0]
-    xy_i, _, _, kv = orb.select_level(raw_k, nms_k, budget0, 20.0, 7.0)
+    xy_i, _, _, kv = orb_select.orb_select(raw_k, nms_k, budget0, 20.0, 7.0)
     blurred = img_ops.gaussian_blur(img0)
     ang_k, desc_k = describe.orb_describe(img0, blurred, xy_i)
     ang_p, desc_p = describe.orb_describe_plain(img0, blurred, xy_i)
@@ -691,6 +723,8 @@ def main():
 
     ba_rows(dev, record)
     front_rows(dev, record, img0, depth0, feats, cam)
+    print(f"device times: {len(rows)} kernels, every launch seen; profiles "
+          f"taken again for missing events: {profile_retries or 'none'}")
 
     # ---- hot path: extraction + fused cascade per frame --------------------
     # (the reference bench's hot-path definition) against kernel C's local

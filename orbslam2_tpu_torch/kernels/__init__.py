@@ -16,7 +16,7 @@ time it launches the CUDA kernel:
   pyramid         I  pyramid level: resize + blur     (ops/image.py, ops/orb.py)
   orb_select      J  cell top-8 + round-robin select  (ops/orb.py)
   rgbd_depth      L  depth sample, u_r, undistortion  (tracking.py)
-  point_attrs     N  distinctive desc, normal, band   (ops/point_attrs.py)
+  point_attrs     N  distinctive desc, normal, band   (map/state.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.

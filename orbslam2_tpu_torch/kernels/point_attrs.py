@@ -6,8 +6,8 @@ observation with the lowest median Hamming distance to the others,
 MapPoint::ComputeDistinctiveDescriptors), the mean viewing normal and the
 scale-invariance band from the reference-keyframe observation
 (MapPoint::UpdateNormalAndDepth), reading the device keyframe mirror. CUDA
-source: ``csrc/point_attrs.cu`` (one warp per point, one lane per slot,
-O <= 32). Descriptors and reference keyframes are exact against
+source: ``csrc/point_attrs.cu`` (one block per point, one thread per slot,
+any slot bucket up to the observation table's width). Descriptors and reference keyframes are exact against
 ``point_attributes_plain``; the normal and the band are float32 sums in
 another order.
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from ..ops.matching import unpack_bits
 
 NAME = "point_attrs"
 FUNCTION = "point_attrs_kernel"  # the __global__ function it launches
@@ -25,13 +26,7 @@ REPLACES = "orbslam2_tpu/ops/point_attrs.py:29"
 launches = 0
 
 BIG = 10000
-MAX_SLOTS = 32   # one lane per observation slot
-
-
-def _unpack_bits(desc: torch.Tensor) -> torch.Tensor:
-    """(..., 32) uint8 -> (..., 256) {0,1} uint8, LSB-first per byte."""
-    shifts = torch.arange(8, dtype=torch.uint8, device=desc.device)
-    return ((desc[..., :, None] >> shifts) & 1).reshape(desc.shape[:-1] + (256,))
+MAX_SLOTS = 1024   # one thread per observation slot, a block's limit
 
 
 def point_attributes_plain(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
@@ -48,7 +43,7 @@ def point_attributes_plain(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
 
     # distinctive descriptor: min median pairwise Hamming
     descs = kf_desc[kfs, fts]                                   # (P, O, 32)
-    bitsf = _unpack_bits(descs).float()                         # (P, O, 256)
+    bitsf = unpack_bits(descs).float()                         # (P, O, 256)
     G = bitsf @ bitsf.transpose(1, 2)                           # (P, O, O)
     s = bitsf.sum(-1)
     dm = (s[:, :, None] + s[:, None, :] - 2.0 * G).to(torch.int32)
@@ -95,8 +90,8 @@ def point_attributes_plain(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
 
 def point_attributes(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
                      mp_ref_kf, scale_factor: float, n_levels_m1: float) -> torch.Tensor:
-    """Kernel N on CUDA tensors (observation slots as int16, O <= 32), the
-    plain version on CPU tensors."""
+    """Kernel N on CUDA tensors (observation slots as int16, 1 <= O <=
+    MAX_SLOTS), the plain version on CPU tensors."""
     global launches
     if obs_kf.device.type == "cpu":
         return point_attributes_plain(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft,
@@ -104,8 +99,8 @@ def point_attributes(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
     dev = obs_kf.device
     P, O = obs_kf.shape
     Kc, n_feat = kf_octave.shape
-    if O > MAX_SLOTS:
-        raise ValueError(f"{NAME}: O={O} slots above the {MAX_SLOTS} lanes of a warp")
+    if not 1 <= O <= MAX_SLOTS:
+        raise ValueError(f"{NAME}: O={O} slots, want 1..{MAX_SLOTS} (a thread each)")
     build.expect(NAME, dev, [("kf_desc", kf_desc, torch.uint8, (Kc, n_feat, 32)),
                              ("kf_octave", kf_octave, torch.int32, (Kc, n_feat)),
                              ("kf_pose", kf_pose, torch.float32, (Kc, 4, 4)),

@@ -43,15 +43,22 @@ def gaussian_kernel1d(ksize: int = KSIZE, sigma: float = 2.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """Static (n_out, n_in) bilinear interpolation matrix with cv::resize's
-    half-pixel centre alignment (src = (dst + 0.5) * scale - 0.5)."""
+def _resize_sources(n_in: int, n_out: int):
+    """Per output, the two source indices and the second one's weight, with
+    cv::resize's half-pixel centre alignment (src = (dst + 0.5) * scale -
+    0.5)."""
     s = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
     s = np.clip(s, 0.0, n_in - 1.0)
     i0 = np.floor(s).astype(np.int64)
     i1 = np.minimum(i0 + 1, n_in - 1)
-    w = s - i0
+    return i0, i1, s - i0
+
+
+@functools.lru_cache(maxsize=None)
+def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Static (n_out, n_in) bilinear interpolation matrix, as the reference
+    builds it."""
+    i0, i1, w = _resize_sources(n_in, n_out)
     M = np.zeros((n_out, n_in), np.float32)
     M[np.arange(n_out), i0] += (1.0 - w).astype(np.float32)
     M[np.arange(n_out), i1] += w.astype(np.float32)
@@ -64,14 +71,12 @@ def resize_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     indices and (n_out, 2) float32 weights. Where both taps name one pixel
     (the clipped end) the second weight is 0 and the first is the matrix's
     summed entry, so a * w0 + a * 0 gives the product's value."""
+    i0, i1, _ = _resize_sources(n_in, n_out)
     M = resize_matrix(n_in, n_out)
     rows = np.arange(n_out)
-    s = np.clip((rows + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1.0)
-    i0 = np.floor(s).astype(np.int32)
-    i1 = np.minimum(i0 + 1, n_in - 1).astype(np.int32)
     w0 = M[rows, i0]
     w1 = np.where(i1 != i0, M[rows, i1], 0.0).astype(np.float32)
-    return np.stack([i0, i1], 1), np.stack([w0, w1], 1)
+    return np.stack([i0, i1], 1).astype(np.int32), np.stack([w0, w1], 1)
 
 
 def _span(idx: np.ndarray, n_out: int, tile: int) -> int:

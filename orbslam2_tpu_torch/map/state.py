@@ -477,23 +477,14 @@ class MapState:
         given point ids.
 
         Large batches run on the device against the keyframe mirror
-        (ops/point_attrs.py): the host pass below is O(P*O^2) numpy. Small
-        batches stay on host, as in the reference."""
+        (kernel N, kernels/point_attrs.py): the host pass below is
+        O(P*O^2) numpy. Small batches stay on host, as in the reference."""
         mps = np.atleast_1d(np.asarray(mps))
         mps = mps[self.mp_valid[mps]]
         if len(mps) == 0:
             return
         if len(mps) >= 128 and self.dev_kf.arrays is not None:
-            from ..kernels.point_attrs import MAX_SLOTS
-
-            # kernel N takes up to a warp of observation slots; a point seen
-            # by more keyframes keeps the host pass
-            wide = (self.mp_obs_kf[mps] >= 0).sum(1) > MAX_SLOTS
-            if not wide.all():
-                self._update_point_attributes_device(mps[~wide])
-            mps = mps[wide]
-            if len(mps) == 0:
-                return
+            return self._update_point_attributes_device(mps)
         sf = self.cfg.extractor.scale_factor
         n_levels = self.cfg.extractor.n_levels
         P = len(mps)
@@ -563,7 +554,7 @@ class MapState:
         with the batch padded to the reference's buckets and the observation
         axis compacted to the smallest power-of-two bucket covering this
         batch's max observation count."""
-        from ..ops import point_attrs
+        from ..kernels import point_attrs
 
         sf = self.cfg.extractor.scale_factor
         n_levels = self.cfg.extractor.n_levels

@@ -17,7 +17,6 @@ from typing import List, Tuple
 import torch
 
 from ..kernels import pyramid as _pyramid
-from ..kernels.pyramid import resize_matrix as _resize_matrix  # noqa: F401 (tests)
 
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:

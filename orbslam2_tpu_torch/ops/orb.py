@@ -59,21 +59,13 @@ def empty_features(n: int, device) -> Features:
     return Features(*fields)
 
 
-def select_level(S_raw: torch.Tensor, S: torch.Tensor, n_out: int,
-                 ini_th: float, min_th: float):
-    """Cell dual threshold, per-cell top-8, round-robin selection of n_out
-    keypoints and parabola subpixel offsets, from kernel A's outputs
-    (kernel J). Returns (xy_int (n_out, 2) int32, xy_sub (n_out, 2) f32,
-    response, valid), all in level coordinates."""
-    return _select.orb_select(S_raw, S, n_out, ini_th, min_th)
-
-
 def detect_level(img: torch.Tensor, n_out: int, ini_th: float, min_th: float,
                  border: int = PATCH_R):
     """Detect up to n_out FAST keypoints on one pyramid level (kernels A +
-    J)."""
+    J). Returns (xy_int (n_out, 2) int32, xy_sub (n_out, 2) f32, response,
+    valid), all in level coordinates."""
     S_raw, S = _fast_score.fast_score_nms(img, border)
-    return select_level(S_raw, S, n_out, ini_th, min_th)
+    return _select.orb_select(S_raw, S, n_out, ini_th, min_th)
 
 
 def level_budgets(n_features: int, n_levels: int, scale_factor: float) -> List[int]:

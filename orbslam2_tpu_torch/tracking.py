@@ -230,11 +230,6 @@ def track_frame_fused(
     ])
 
 
-# kernel L under the reference's name: (xy_undist, ur, depth) of the
-# keypoints from the uint16 depth upload (depth[::stride, ::stride])
-rgbd_virtual_right_u16 = _rgbd_depth.rgbd_depth
-
-
 # ---------------------------------------------------------------------------
 # Tracker
 # ---------------------------------------------------------------------------
@@ -305,8 +300,9 @@ class Tracker:
             d_u16 = np.where(
                 (d > 0) & (d * scale < 65535.0), d * scale, 0.0
             ).astype(np.uint16)
-            # kernel L also undistorts the keypoints
-            dev["xy"], dev["ur"], dev["depth"] = rgbd_virtual_right_u16(
+            # kernel L: (xy_undist, ur, depth) of the keypoints from the
+            # uint16 upload; it also undistorts them
+            dev["xy"], dev["ur"], dev["depth"] = _rgbd_depth.rgbd_depth(
                 torch.from_numpy(d_u16).to(self.device), self._f32(1.0 / scale),
                 feats.xy, feats.valid, self.cam, stride=stride,
             )

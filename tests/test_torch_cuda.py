@@ -56,8 +56,8 @@ def test_select_level_matches_cpu(cuda):
     card as on the CPU."""
     img = _frame(cuda)
     raw, nms = fast_score.fast_score_nms(img, orb.PATCH_R)
-    out_gpu = orb.select_level(raw, nms, 200, 20.0, 7.0)
-    out_cpu = orb.select_level(raw.cpu(), nms.cpu(), 200, 20.0, 7.0)
+    out_gpu = orb_select.orb_select_plain(raw, nms, 200, 20.0, 7.0)
+    out_cpu = orb_select.orb_select_plain(raw.cpu(), nms.cpu(), 200, 20.0, 7.0)
     for a, b in zip(out_gpu, out_cpu):
         assert torch.equal(a.cpu(), b)
 
@@ -65,7 +65,7 @@ def test_select_level_matches_cpu(cuda):
 def test_orb_describe(cuda):
     img = _frame(cuda)
     raw, nms = fast_score.fast_score_nms(img, orb.PATCH_R)
-    xy, _, _, v = orb.select_level(raw, nms, 200, 20.0, 7.0)
+    xy, _, _, v = orb_select.orb_select(raw, nms, 200, 20.0, 7.0)
     blurred = img_ops.gaussian_blur(img)
     for upright in (False, True):
         ak, dk = describe.orb_describe(img, blurred, xy, upright)
@@ -300,12 +300,13 @@ def test_rgbd_depth_bit_exact(cuda):
         assert int((out_k[2] > 0).sum()) > 500
 
 
-@pytest.mark.parametrize("O", [8, 32])
+@pytest.mark.parametrize("O", [8, 32, 64, 128, 512])
 def test_point_attrs_matches_plain(cuda, O):
-    """Kernel N at P=512: descriptors and reference keyframes exact (random
+    """Kernel N at P=512 over every slot bucket up to the observation
+    table's 512: descriptors and reference keyframes exact (random
     descriptors tie in the median often), normals and band within 1e-5."""
     rng = np.random.default_rng(O)
-    Kf, Nf, P = 64, 1024, 512
+    Kf, Nf, P = max(64, O), 1024, 512
     n_obs = rng.integers(1, O + 1, P)
     obs_kf = np.full((P, O), -1, np.int16)
     obs_ft = np.full((P, O), -1, np.int16)
@@ -324,6 +325,30 @@ def test_point_attrs_matches_plain(cuda, O):
     op = point_attrs.point_attributes_plain(*args)
     assert torch.equal(ok[:, :32], op[:, :32]) and torch.equal(ok[:, 37], op[:, 37])
     torch.testing.assert_close(ok[:, 32:37], op[:, 32:37], rtol=1e-5, atol=1e-5)
+
+
+def test_device_ms_sees_every_launch(cuda):
+    """chip_smoke.device_ms counts only a profile that holds an event for
+    every launch of the kernel, and takes an incomplete one again. Prints
+    how many of 30 profiles of kernel B's short launches (whose events a
+    profile on the card has missed) missed events."""
+    import chip_smoke
+
+    img = _frame(cuda)
+    raw, nms = fast_score.fast_score_nms(img, orb.PATCH_R)
+    xy = orb_select.orb_select(raw, nms, 200, 20.0, 7.0)[0]
+    blurred = pyramid.pyramid_level(img)[1]
+
+    def fn():
+        describe.orb_describe(img, blurred, xy)
+
+    counts = [chip_smoke.device_events(fn, describe.FUNCTION)[1] for _ in range(30)]
+    print(f"profiles: {sum(c != 20 for c in counts)} of 30 missed events "
+          f"({sorted(set(counts))} events for 20 launches)")
+    before = len(chip_smoke.profile_retries)
+    for _ in range(5):
+        assert chip_smoke.device_ms(fn, describe.FUNCTION) > 0
+    assert all(seen != want for _, seen, want in chip_smoke.profile_retries[before:])
 
 
 def test_front_end_kernels_refuse(cuda):
@@ -353,8 +378,8 @@ def test_front_end_kernels_refuse(cuda):
         point_attrs.point_attributes(desc, octv, pose, torch.zeros((2, 8), dtype=torch.int32, device=cuda),
                                      torch.zeros((2, 8), dtype=torch.int32, device=cuda),
                                      pos, ref, 1.2, 7.0)
-    obs = torch.zeros((2, 33), dtype=torch.int16, device=cuda)
-    with pytest.raises(ValueError, match="O=33"):
+    obs = torch.zeros((2, 1025), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="O=1025"):
         point_attrs.point_attributes(desc, octv, pose, obs, obs, pos, ref, 1.2, 7.0)
 
 

@@ -11,6 +11,7 @@ from orbslam2_tpu.models import camera as jcam
 from orbslam2_tpu.ops import geometry as jgeo
 from orbslam2_tpu.ops import image as jimg
 from orbslam2_tpu.ops import linalg_small as jls
+from orbslam2_tpu_torch.kernels import pyramid as tpyr
 from orbslam2_tpu_torch.models import camera as tcam
 from orbslam2_tpu_torch.ops import geometry as tgeo
 from orbslam2_tpu_torch.ops import image as timg
@@ -183,7 +184,7 @@ def test_gaussian_blur():
 @pytest.mark.parametrize("out_hw", [(200, 267), (139, 185), (240, 320)])
 def test_resize_bilinear(out_hw):
     img = _image(9)
-    np.testing.assert_array_equal(timg._resize_matrix(240, out_hw[0]),
+    np.testing.assert_array_equal(tpyr.resize_matrix(240, out_hw[0]),
                                   jimg._resize_matrix(240, out_hw[0]))
     np.testing.assert_allclose(timg.resize_bilinear(_t(img), out_hw).numpy(),
                                np.asarray(jimg.resize_bilinear(_j(img), out_hw)),
@@ -211,8 +212,6 @@ def test_two_tap_resize():
     """The resize as two taps per output row and column (kernel I's plain
     version) reproduces the reference's interpolation matrices, and its
     levels agree with the reference's matrix products to TWO_TAP_TOL."""
-    from orbslam2_tpu_torch.kernels import pyramid as tpyr
-
     for n_in, n_out in [(240, 200), (320, 267), (139, 116), (480, 400), (7, 5)]:
         idx, w = tpyr.resize_taps(n_in, n_out)
         M = np.zeros((n_out, n_in), np.float32)

@@ -19,7 +19,7 @@ from orbslam2_tpu.ops import point_attrs as jpa
 from orbslam2_tpu_torch import local_mapping as tlm
 from orbslam2_tpu_torch.models.camera import Camera as TCamera
 from orbslam2_tpu_torch.ops import ba as tba
-from orbslam2_tpu_torch.ops import point_attrs as tpa
+from orbslam2_tpu_torch.kernels import point_attrs as tpa
 from orbslam2_tpu_torch.utils.synthetic import render_sequence
 
 torch.set_num_threads(2)
@@ -59,14 +59,15 @@ def test_point_attributes():
     np.testing.assert_allclose(out_t[:, 32:37], out_j[:, 32:37], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("O", [16, 32])
+@pytest.mark.parametrize("O", [16, 32, 64])
 def test_point_attributes_ties(O):
-    """Kernel N's plain version at the wider observation buckets, with
+    """Kernel N's plain version at the wider observation buckets (64: a
+    grown observation table), with
     descriptors drawn from a pool of 12 so that medians tie within a row and
     the lowest medians tie across slots (the first slot wins): descriptors
     and reference keyframes exact, normals and band 1e-5."""
     rng = np.random.default_rng(24 + O)
-    Kf, N, P = 40, 128, 300
+    Kf, N, P = max(40, O), 128, 300
     pool = rng.integers(0, 256, (12, 32)).astype(np.uint8)
     kf_desc = pool[rng.integers(0, 12, (Kf, N))]
     kf_oct = rng.integers(0, 8, (Kf, N)).astype(np.int32)
@@ -221,9 +222,10 @@ def test_fuse_rendered_pair():
     np.testing.assert_array_equal(rt.dist.numpy()[both], np.asarray(rj.dist)[both])
 
 
-def _jax_map_with_points():
-    """A reference MapState built through its host API: 3 keyframes from
-    random features, 300 points each observed by 2-3 of them."""
+def _jax_map_with_points(n_kf=3):
+    """A reference MapState built through its host API: n_kf keyframes from
+    random features and 300 points, all observed by the first two keyframes
+    and the first 150 by every later one (by 2-3 with 3 keyframes)."""
     from orbslam2_tpu.config import SlamConfig as JSlamConfig
     from orbslam2_tpu.map.state import MapState as JMapState
 
@@ -231,7 +233,7 @@ def _jax_map_with_points():
     cfg = JSlamConfig(sensor="rgbd")
     m = JMapState.allocate(cfg)
     N = cfg.extractor.max_keypoints
-    for k in range(3):
+    for k in range(n_kf):
         T = np.eye(4, dtype=np.float32)
         T[0, 3] = -0.2 * k
         m.add_keyframe(T, rng.uniform(0, 600, (N, 2)).astype(np.float32),
@@ -241,26 +243,32 @@ def _jax_map_with_points():
                        np.ones(N, bool), k, k / 30.0)
     pts = rng.uniform(-2, 2, (300, 3)).astype(np.float32) + np.float32([0, 0, 4])
     mps = m.add_map_points_batch(pts, 0)
-    for k in range(3):
+    for k in range(n_kf):
         sel = mps[: 300 if k < 2 else 150]
         m.add_observations_batch(sel, k, rng.permutation(N)[: len(sel)])
     return cfg, m
+
+
+def _port_map(jm):
+    """The port's MapState holding the reference map ``jm``'s arrays."""
+    import dataclasses
+
+    from orbslam2_tpu_torch import config as tconfig
+    from orbslam2_tpu_torch.utils.convert import map_state_from_numpy
+
+    fields = {f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)
+              if f.name not in ("cfg", "lock", "dev_kf")}
+    tm = map_state_from_numpy(tconfig.SlamConfig(sensor="rgbd"), fields,
+                              device="cpu")
+    return fields, tm
 
 
 def test_map_state_from_numpy_and_attribute_refresh():
     """convert.map_state_from_numpy hands the reference's map to the port;
     the host (< 128 points) and device (>= 128) attribute refreshes and the
     covisibility update then agree with the reference's."""
-    import dataclasses
-
-    from orbslam2_tpu_torch import config as tconfig
-    from orbslam2_tpu_torch.utils.convert import map_state_from_numpy
-
     _, jm = _jax_map_with_points()
-    fields = {f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)
-              if f.name not in ("cfg", "lock", "dev_kf")}
-    tm = map_state_from_numpy(tconfig.SlamConfig(sensor="rgbd"), fields,
-                              device="cpu")
+    fields, tm = _port_map(jm)
     for name, value in fields.items():
         if isinstance(value, np.ndarray):
             np.testing.assert_array_equal(getattr(tm, name), value)
@@ -273,6 +281,29 @@ def test_map_state_from_numpy_and_attribute_refresh():
     np.testing.assert_array_equal(tm.mp_ref_kf, jm.mp_ref_kf)
     np.testing.assert_array_equal(tm.covis_idx, jm.covis_idx)
     np.testing.assert_array_equal(tm.covis_w, jm.covis_w)
+    for name in ("mp_normal", "mp_dmin", "mp_dmax"):
+        np.testing.assert_allclose(getattr(tm, name), getattr(jm, name),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_attribute_refresh_of_points_seen_by_many_keyframes():
+    """Points observed by 40 keyframes grow the observation table from 32 to
+    64 slots; the device refresh (kernel N's path; its plain version on the
+    CPU) takes all of them in the 64-slot bucket, with no host detour, and
+    agrees with the reference's: descriptors and reference keyframes exact,
+    normals and band 1e-5."""
+    _, jm = _jax_map_with_points(n_kf=40)
+    assert jm.mp_obs_kf.shape[1] == 64 and (jm.mp_obs_kf[:150] >= 0).sum(1).min() == 40
+    _, tm = _port_map(jm)
+    launched = []
+    tm._update_point_attributes_device = (
+        lambda mps, f=tm._update_point_attributes_device: launched.append(len(mps)) or f(mps))
+    for m in (jm, tm):
+        m.dev_kf.ensure(m)
+        m.update_point_attributes(np.arange(300))
+    assert launched == [300]
+    np.testing.assert_array_equal(tm.mp_desc, jm.mp_desc)
+    np.testing.assert_array_equal(tm.mp_ref_kf, jm.mp_ref_kf)
     for name in ("mp_normal", "mp_dmin", "mp_dmax"):
         np.testing.assert_allclose(getattr(tm, name), getattr(jm, name),
                                    rtol=1e-5, atol=1e-5)

@@ -20,6 +20,7 @@ from orbslam2_tpu.ops import orb as jorb
 from orbslam2_tpu.ops import pose_opt as jpose
 from orbslam2_tpu_torch import tracking as ttrack
 from orbslam2_tpu_torch.kernels import hamming as thamming
+from orbslam2_tpu_torch.kernels import rgbd_depth as trgbd
 from orbslam2_tpu_torch.models.camera import Camera as TCamera
 from orbslam2_tpu_torch.ops import matching as tmatch
 from orbslam2_tpu_torch.ops import pose_opt as tpose
@@ -175,7 +176,7 @@ def test_rgbd_virtual_right():
     urj, dj = jtrack._rgbd_virtual_right_u16(
         jnp.asarray(d_u16), jnp.float32(scale), jnp.asarray(xy), jnp.asarray(xy),
         jnp.asarray(valid), jnp.float32(26.0), stride=2)
-    xyt, urt, dt = ttrack.rgbd_virtual_right_u16(
+    xyt, urt, dt = trgbd.rgbd_depth(
         _t(d_u16), float(scale), _t(xy), _t(valid), TCamera.create(**CAM), stride=2)
     assert (np.asarray(dj) > 0).mean() > 0.7
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
@@ -199,7 +200,7 @@ def test_rgbd_virtual_right_undistorts():
     urj, dj = jtrack._rgbd_virtual_right_u16(
         jnp.asarray(d_u16), jnp.float32(scale), jnp.asarray(xy), xy_uj,
         jnp.asarray(valid), jnp.float32(26.0), stride=2)
-    xyt, urt, dt = ttrack.rgbd_virtual_right_u16(
+    xyt, urt, dt = trgbd.rgbd_depth(
         _t(d_u16), float(scale), _t(xy), _t(valid), tc, stride=2)
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
     np.testing.assert_allclose(xyt.numpy(), np.asarray(xy_uj), rtol=0, atol=6.1e-5)

@@ -8,16 +8,24 @@ Phases, each printing one line:
      per source, in parallel);
   3. compares each kernel with its plain PyTorch version on the card at the
      main path's shapes (640x480, 8 levels, N=1024 keypoints, P=12288 local
-     points, pose LM over 12288 edges of which ~600 valid; bundle adjustment
-     steps E-H on the local-BA window K=16, M=1024, O=8); times one call
-     of each kernel's wrapper and of its plain version between CUDA
-     events, and the kernel alone on the device (torch.profiler's device
-     events, a profile counting only if it saw every launch), and computes its
-     bound from the run's inputs; then the whole
+     points, pose LM over 12288 edges of which ~600 valid; triangulation
+     against B=10 neighbours and fuse over D=20 directions of P=1024 points
+     on keyframes from rendered frames; bundle adjustment steps E-H on the
+     local-BA window K=16, M=1024, O=8); times one call of each kernel's
+     wrapper and of its plain version between CUDA events, and the kernel
+     alone on the device (torch.profiler's device events; a profile that
+     missed launches is taken again, and if all three do, the mean of the
+     recorded launches counts), and computes its bound from the run's
+     inputs. Then: the tracking cascade (kernels O, C, Q, D, R) against the
+     plain cascade, from a prediction the first pass tracks and from one
+     only the device-side retry tracks, and, by profiler, that one frame's
+     cascade runs no device work but its kernels, memsets and the
+     prediction's upload, with exactly one device-to-host copy; the whole
      BA schedule, kernels against the plain schedule
      (utils/ba_parity.compare), at K=16/M=1024/O=8 (5 iterations + outlier
      round, the local mapper's last chunk) and at the reference bench's
-     K=64/M=4096/O=8 (10 iterations + outlier round); the front end's
+     K=64/M=4096/O=8 (10 iterations + outlier round), with kernel F beside
+     the library's Cholesky solve of the same system; the front end's
      kernels I (every level of the pyramid) and J (the selection on every
      level) bit-exact, L bit-exact with and without distortion, N on
      seeded batches at P=512, O=8, 32 and 64; and, by profiler, that the
@@ -106,17 +114,20 @@ def device_events(fn, kernel, reps=20):
 def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
     """Device time in ms per call of ``fn`` of the CUDA kernel named
     ``kernel`` over ``reps`` calls, each launching it ``per_call`` times
-    (with ``kernel=None``, of all device events). Only a profile that saw
-    every one of the kernel's launches counts: one that missed any is
-    recorded in ``profile_retries`` and taken again, ``attempts`` times at
-    most."""
+    (with ``kernel=None``, of all device events). A profile that saw every
+    one of the kernel's launches gives the sum over the calls; one that
+    missed any is recorded in ``profile_retries`` and taken again,
+    ``attempts`` times at most. If every profile missed launches, the mean
+    time of the launches the fullest one recorded, times ``per_call``."""
+    best = (0.0, 0)
     for _ in range(attempts):
         total, count = device_events(fn, kernel, reps)
         if kernel is None or count == reps * per_call:
             return total / reps
         profile_retries.append((kernel, count, reps * per_call))
-    raise AssertionError(f"{kernel}: {profile_retries[-attempts:]} device "
-                         f"events for launches in {attempts} profiles")
+        best = max(best, (total, count), key=lambda tc: tc[1])
+    check(best[1] > 0, f"{kernel}: no device event in {attempts} profiles")
+    return best[0] / best[1] * per_call
 
 
 def check(cond, msg):
@@ -156,6 +167,344 @@ def describe_footprint(xy, angle, width, height):
     return distinct(xy[:, None] + circle) + distinct(xy[:, None] + tests.long())
 
 
+MP_KEYS = ("pos", "desc", "valid", "normal", "dmin", "dmax")
+RETRY_YAW = 0.05  # rad off in the prediction: the first pass admits < 10 inliers
+
+
+def yawed(T, yaw):
+    """T with its rotation replaced by ``yaw`` rad about the y axis."""
+    c, s = float(np.cos(yaw)), float(np.sin(yaw))
+    out = T.clone()
+    out[:3, :3] = torch.tensor([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                               device=T.device)
+    return out
+
+
+def local_map_case(feats, depth, rng, P=12288):
+    """A local map of P points for the frame's keypoints ``feats``: the
+    keypoints back-projected with their ``depth`` (descriptors with a few
+    flipped bits), then random points from ``rng`` filling the buffer; and
+    the depth at each keypoint."""
+    dev = feats.xy.device
+    N = feats.xy.shape[0]
+    xy_np = feats.xy.cpu().numpy()
+    d_kp = depth[np.clip(np.round(xy_np[:, 1]).astype(int), 0, H - 1),
+                 np.clip(np.round(xy_np[:, 0]).astype(int), 0, W - 1)]
+    pos = np.concatenate([rng.uniform(-2, 2, (P, 2)), rng.uniform(2, 6, (P, 1))], 1)
+    pos[:N, 0] = (xy_np[:, 0] - W / 2) / FX * d_kp
+    pos[:N, 1] = (xy_np[:, 1] - H / 2) / FX * d_kp
+    pos[:N, 2] = d_kp
+    desc = rng.integers(0, 256, (P, 32)).astype(np.uint8)
+    flips = rng.integers(0, 256, (N, 32)).astype(np.uint8) & \
+        rng.integers(0, 256, (N, 32)).astype(np.uint8) & \
+        rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    desc[:N] = feats.desc.cpu().numpy() ^ flips
+    valid = torch.from_numpy(rng.random(P) < 0.9).to(dev)
+    valid[:N] = feats.valid
+    return dict(pos=torch.from_numpy(pos.astype(np.float32)).to(dev),
+                desc=torch.from_numpy(desc).to(dev), valid=valid,
+                normal=torch.tensor([0.0, 0.0, 1.0], device=dev).expand(P, 3).contiguous(),
+                dmin=torch.full((P,), 0.3, device=dev),
+                dmax=torch.from_numpy((pos[:, 2] * 1.2 ** 3).astype(np.float32)).to(dev)
+                ), d_kp
+
+
+def cascade_case(cam, local_map, feats, d_kp):
+    """The cascade's arguments after the prediction, at the main path's
+    shapes: phase 3's P=12288 local map and frame 0's N keypoints with their
+    depth and u_right."""
+    dev = feats.xy.device
+    d = torch.from_numpy(np.asarray(d_kp, np.float32)).to(dev)
+    depth = torch.where(feats.valid & (d > 0), d, torch.full_like(d, -1.0))
+    ur = torch.where(depth > 0, feats.xy[:, 0] - torch.full_like(d, cam.bf)
+                     / depth.clamp_min(1e-6), torch.full_like(d, -1.0))
+    return tuple(local_map[k] for k in MP_KEYS) + (
+        feats.xy, feats.desc, feats.octave, feats.valid, ur, depth)
+
+
+def census_depth(args):
+    """The median keypoint depth of a cascade case: a close/far split that
+    puts keypoints on both sides (the slice's ThDepth of 3.5 m lies below
+    most of frame 0's depths)."""
+    d = args[-1]
+    return float(d[d > 0].median())
+
+
+def first_pass_inliers(cam, T_pred, args):
+    """Pass 1's inlier count of the cascade from ``T_pred`` (plain)."""
+    from orbslam2_tpu_torch import tracking
+    from orbslam2_tpu_torch.kernels import pose_lm
+
+    _, cl = tracking.project_match(tracking._PLAIN, cam, T_pred, *args[:11],
+                                   15.0, 1.2, 8)
+    return int(pose_lm.pose_lm_plain(T_pred, cam, args[0], cl.obs, cl.sigma2,
+                                     cl.keep)[2])
+
+
+def cascade_kernels(run):
+    """The kinds of device work of one ``run()`` of a tracked frame's
+    cascade, from the prediction's upload to the packed result on the host
+    (torch.profiler's device events); fails unless each is a kernel of the
+    cascade (O, C, Q, D, R), a memset or the upload, and unless exactly one
+    copy goes to the host."""
+    from orbslam2_tpu_torch.kernels import (cascade_pack, claim_resolve, hamming,
+                                            pose_lm, project_gate)
+
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    allowed = [m.FUNCTION for m in (project_gate, hamming, claim_resolve, pose_lm,
+                                    cascade_pack)] + ["Memset", "Memcpy HtoD"]
+    d2h = sum(n for k, n in counts.items() if "DtoH" in k)
+    other = sorted(k for k in counts
+                   if "DtoH" not in k and not any(a in k for a in allowed))
+    check(not other, f"the cascade launched other device work: {other}")
+    check(d2h == 1, f"the cascade made {d2h} device-to-host copies, not 1")
+    return sum(counts.values()), sorted(counts)
+
+
+def cascade_rows(dev, record, cam, local_map, feats, d_kp, T_pred):
+    """Kernels O, Q and R against their plain versions at the main path's
+    shapes (P=12288 local points, N=1024 keypoints), then the whole cascade
+    (kernels O, C, Q, D, R) against the plain cascade on the card from a
+    prediction the first pass tracks and from one it cannot (the retry),
+    and the profiler check of one frame's cascade."""
+    from orbslam2_tpu_torch import tracking
+    from orbslam2_tpu_torch.kernels import (cascade_pack, claim_resolve, hamming,
+                                            pose_lm, project_gate)
+
+    args = cascade_case(cam, local_map, feats, d_kp)
+    th_depth = census_depth(args)
+    mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin, mp_dmax = args[:6]
+    kp_xy, kp_desc, kp_octave, kp_valid, kp_ur, kp_depth = args[6:]
+    P, N = mp_pos.shape[0], kp_xy.shape[0]
+
+    # O: every output bit-exact but pred_level, whose log() may round apart
+    o_args = (cam, T_pred, mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax, 15.0,
+              1.2, 8)
+    ok_, op_ = project_gate.project_gate(*o_args), project_gate.project_gate_plain(*o_args)
+    lvl_same = ok_.pred_level == op_.pred_level
+    agree = lvl_same.float().mean().item()
+    check(torch.equal(ok_.proj, op_.proj) and torch.equal(ok_.ur_pred, op_.ur_pred)
+          and torch.equal(ok_.row_valid, op_.row_valid)
+          and torch.equal(ok_.r_px[lvl_same], op_.r_px[lvl_same]),
+          "kernel O not bit-exact")
+    check(agree >= 0.999, f"kernel O pred_level agrees for {agree} < 0.999")
+    err_o = (ok_.r_px - op_.r_px).abs().max().item()
+    n_rows = int(ok_.row_valid.sum())
+    record(project_gate, err_o, lambda: project_gate.project_gate(*o_args),
+           cuda_ms(lambda: project_gate.project_gate_plain(*o_args)),
+           f"P={P}, {n_rows} in the frustum; projection, u_right, frustum "
+           f"bit-exact, pred_level equal for {100 * agree:.4f}% of points",
+           # the pose and, per point, position, validity, normal and depth
+           # band read once, kernel C's five inputs written; ~70 ops a point
+           n_bytes=64 + 4 * 8 + P * (12 + 1 + 12 + 4 + 4) + P * (8 + 4 + 4 + 4 + 1),
+           n_ops=70 * P)
+
+    # Q: fed kernel C's output on kernel O's projection; bit-exact
+    top2 = hamming.hamming_top2_gated(mp_desc, *ok_[:4], ok_.row_valid, kp_desc,
+                                      kp_xy, kp_octave, kp_valid, kp_ur)
+    q_args = (*top2, ok_.row_valid, kp_xy, kp_octave, kp_ur, 1.2, 100, 0.9)
+    qk = claim_resolve.claim_resolve(*q_args)
+    qp = claim_resolve.claim_resolve_plain(*q_args)
+    check(all(torch.equal(a, b) for a, b in zip(qk, qp)),
+          "kernel Q claims, keep, observations or sigma^2 differ")
+    ok_rows = int(((top2[1] <= 100) & ok_.row_valid).sum())
+    record(claim_resolve, 0.0, lambda: claim_resolve.claim_resolve(*q_args),
+           cuda_ms(lambda: claim_resolve.claim_resolve_plain(*q_args)),
+           f"{ok_rows} rows within TH_HIGH, {int(qk.keep.sum())} kept; claims, "
+           f"keep, observations and sigma^2 bit-exact",
+           # C's four outputs and the frustum mask read once, the keypoints'
+           # xy, u_right and octave, the sigma^2 table; kp_of_mp, keep, obs
+           # and sigma^2 written; ~12 ops a point
+           n_bytes=P * (16 + 1) + N * (8 + 4 + 4) + 4 * 32 + P * (4 + 1 + 12 + 4),
+           n_ops=12 * P, per_call=2)
+
+    # R: fed the kernels' local-map and tight passes; bit-exact
+    def pass_(Tcw, r):
+        pr, cl = tracking.project_match(tracking._KERNELS, cam, Tcw, *args[:11],
+                                        r, 1.2, 8)
+        T, inl, n, _ = pose_lm.pose_lm(Tcw, cam, mp_pos, cl.obs, cl.sigma2, cl.keep)
+        return T, n, inl, cl.kp_of_mp, pr.row_valid
+
+    T2, n2, inl2, kp2, fr2 = pass_(T_pred, 4.0)
+    T3, n3, inl3, kp3, _ = pass_(T2, 2.0)
+    r_args = (T2, n2, inl2, kp2, T3, n3, inl3, kp3, n2, fr2, kp_valid, kp_depth,
+              th_depth)
+    rk = cascade_pack.cascade_pack(*r_args)
+    rp = cascade_pack.cascade_pack_plain(*r_args)
+    check(torch.equal(rk, rp), "kernel R's packed vector differs")
+    record(cascade_pack, 0.0, lambda: cascade_pack.cascade_pack(*r_args),
+           cuda_ms(lambda: cascade_pack.cascade_pack_plain(*r_args)),
+           f"packed vector bit-exact (n2 {int(n2)}, n3 {int(n3)}, census "
+           f"{int(rk[18])} / {int(rk[19])})",
+           # both passes' pose, count, inliers and claims, the frustum mask,
+           # the keypoints' validity and depth read once, (20 + P) floats
+           # written; ~10 ops a point and 5 a keypoint
+           n_bytes=2 * (64 + 4 + P * 5) + 4 + P + N * 5 + 4 * (20 + P),
+           n_ops=10 * P + 5 * N)
+
+    # the whole cascade against the plain cascade, both retry branches:
+    # pose 1e-4 (kernel D sums in another order), counts and codes >= 99%
+    # equal, as tests/test_torch_tracking.py holds the plain cascade to JAX
+    for label, Tp, retry in (("tracked", T_pred, False),
+                             ("retry", yawed(T_pred, RETRY_YAW), True)):
+        n1 = first_pass_inliers(cam, Tp, args)
+        check((n1 < 10) == retry, f"cascade {label}: pass 1 has {n1} inliers")
+        fused = (cam, Tp, *args, th_depth, 15.0, 1.2, 8, 10)
+        pk = tracking.track_frame_fused(*fused)
+        pp = tracking.track_frame_fused(*fused, plain=True)
+        err = (pk[:16] - pp[:16]).abs().max().item()
+        counts_ok = all(abs(pk[i].item() - pp[i].item()) <= max(0.01 * pp[i].item(), 1)
+                        for i in range(16, 20))
+        codes = (pk[20:] == pp[20:]).float().mean().item()
+        check(err <= 1e-4 and counts_ok and codes >= 0.99 and pp[17] > 100,
+              f"cascade {label}: pose {err}, counts {pk[16:20].tolist()} vs "
+              f"{pp[16:20].tolist()}, codes {codes}")
+        ms_k = cuda_ms(lambda: tracking.track_frame_fused(*fused).cpu())
+        dev_k = device_ms(lambda: tracking.track_frame_fused(*fused), None, reps=10)
+        ms_p = cuda_ms(lambda: tracking.track_frame_fused(*fused, plain=True).cpu(),
+                       reps=5, warmup=1)
+        print(f"cascade {label}: pass 1 {n1} inliers; kernels {ms_k:.3f} ms a frame "
+              f"({dev_k:.3f} ms on the device) vs plain {ms_p:.3f} ms; pose max "
+              f"diff {err:.2e}, counts {[int(v) for v in pk[16:20].tolist()]} vs "
+              f"{[int(v) for v in pp[16:20].tolist()]}, codes equal {codes:.5f}")
+    T_np = T_pred.cpu().numpy()
+    n_ev, kinds = cascade_kernels(lambda: tracking.track_frame_fused(
+        cam, torch.from_numpy(T_np).to(dev), *args, th_depth, 15.0, 1.2, 8,
+        10).cpu())
+    print(f"cascade on the card, all its device work: {n_ev} events, one "
+          f"device-to-host copy: " + ", ".join(kinds))
+
+
+def mapping_case(dev, cam, extractor, frames, poses):
+    """Local mapping's kernel inputs at the main path's shapes from rendered
+    frames 0, 3, ..., 30 as keyframes (their features, N = 1024 slots; the
+    depth at each keypoint and u_right; the true poses). Fuse: D = 20
+    directions, frame 30's points into the 10 others and theirs into it,
+    P = 1024 points each (the keypoints with depth, unprojected). Triangulation:
+    frame 30 against the 10 others (B = 10, the last a padding row), half of
+    its keypoints already holding a point."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    kfs = []
+    for i in range(0, 31, 3):
+        img, depth = frames[i]
+        f = extractor(img)
+        xy, valid = f.xy.cpu().numpy(), f.valid.cpu().numpy()
+        d = depth[np.clip(np.rint(xy[:, 1]).astype(int), 0, H - 1),
+                  np.clip(np.rint(xy[:, 0]).astype(int), 0, W - 1)].astype(np.float32)
+        d = np.where(valid & (d > 0), d, -1.0).astype(np.float32)
+        ur = np.where(d > 0, xy[:, 0] - cam.bf / np.maximum(d, 1e-6), -1.0)
+        kfs.append(dict(xy=f.xy, desc=f.desc, oct=f.octave, valid=f.valid,
+                        depth=t(d), ur=t(ur.astype(np.float32)),
+                        T=t(poses[i].astype(np.float32)), xy_np=xy, d_np=d))
+    cur, nbs = kfs[-1], kfs[:-1]
+    N, P = cur["xy"].shape[0], 1024
+
+    def points(kf):
+        ok = np.where(kf["d_np"] > 0)[0][:P]
+        x, d = kf["xy_np"][ok], kf["d_np"][ok][:, None]
+        pc = np.concatenate([(x[:, :1] - cam.cx) / cam.fx * d,
+                             (x[:, 1:] - cam.cy) / cam.fy * d, d], 1)
+        Twc = np.linalg.inv(kf["T"].cpu().numpy())
+        pos = np.zeros((P, 3), np.float32)
+        pos[:len(ok)] = pc @ Twc[:3, :3].T + Twc[:3, 3]
+        desc = torch.zeros((P, 32), dtype=torch.uint8, device=dev)
+        desc[:len(ok)] = kf["desc"][t(ok)]
+        valid = np.zeros(P, bool)
+        valid[:len(ok)] = True
+        return t(pos), desc, t(valid)
+
+    dirs = [(cur, nb) for nb in nbs] + [(nb, cur) for nb in nbs]
+    src = [points(a) for a, _ in dirs]
+    stack = lambda key: torch.stack([b[key] for _, b in dirs])  # noqa: E731
+    fuse_args = (torch.stack([s[0] for s in src]), torch.stack([s[1] for s in src]),
+                 torch.stack([s[2] for s in src]), stack("T"), stack("xy"),
+                 stack("desc"), stack("oct"), stack("valid"), cam, 1.2, 3.0)
+    avail1 = cur["valid"] & (torch.arange(N, device=dev) % 2 == 0)
+    nb_ok = torch.ones(len(nbs), dtype=torch.bool, device=dev)
+    nb_ok[-1] = False
+    nstack = lambda key: torch.stack([nb[key] for nb in nbs])  # noqa: E731
+    tri_args = (cur["desc"], cur["xy"], cur["oct"], avail1, cur["depth"], cur["ur"],
+                cur["T"], nstack("desc"), nstack("xy"), nstack("oct"), nstack("valid"),
+                nstack("depth"), nstack("ur"), nstack("T"), nb_ok, t(cam.K),
+                cam.bf / cam.fx, cam.bf, 1.2)
+    return fuse_args, tri_args
+
+
+def mapping_rows(dev, record, cam, extractor, frames, poses):
+    """Kernels S (triangulation, B = 10, N = 1024) and T (fuse, D = 20,
+    P = N = 1024) against their plain versions on keyframes from rendered
+    frames."""
+    from orbslam2_tpu_torch.kernels import fuse_match, scale, triangulate
+    from orbslam2_tpu_torch.ops import matching
+
+    fuse_args, tri_args = mapping_case(dev, cam, extractor, frames, poses)
+
+    # S: idx exact; good flips <= max(2, 1%) and X within 1e-4 m where both
+    # keep the point (the geometry runs in the plain version's order, so
+    # it may well be bit-exact, which the line reports)
+    Xk, gk, ik = triangulate.triangulate(*tri_args)
+    Xp, gp, ip = triangulate.triangulate_plain(*tri_args)
+    n_good = int(gp.sum())
+    flips = int((gk != gp).sum())
+    both = gk & gp
+    err_s = (Xk - Xp)[both].abs().max().item() if both.any() else 0.0
+    exact = torch.equal(Xk, Xp) and torch.equal(gk, gp)
+    check(torch.equal(ik, ip), "kernel S match indices differ")
+    check(n_good > 50 and flips <= max(2, 0.01 * n_good),
+          f"kernel S: {n_good} good, {flips} flips")
+    check(err_s <= 1e-4, f"kernel S points differ by {err_s} m")
+    desc1, xy1, oct1, avail1 = tri_args[:4]
+    xy2, oct2, avail2, T2, K = tri_args[8], tri_args[9], tri_args[10], tri_args[13], tri_args[15]
+    B, N = xy2.shape[:2]
+    F21 = matching.fundamental_from_poses(K, K, tri_args[6], T2)
+    pair = matching.epipolar_gate(xy1.expand(B, N, 2), xy2, F21,
+                                  scale.table(1.2, "sig2", dev)[oct2.long()])
+    pair = pair & avail1[None, :, None] & avail2[:, None, :]
+    n_pairs, n_match = int(pair.sum()), int((ik >= 0).sum())
+    n_gate = int(avail1.sum()) * N * B
+    record(triangulate, err_s, lambda: triangulate.triangulate(*tri_args),
+           cuda_ms(lambda: triangulate.triangulate_plain(*tri_args)),
+           f"B={B} N={N}: {n_pairs} pairs in the epipolar band, {n_match} "
+           f"mutual matches, {n_good} good; idx exact, good flips {flips}, X "
+           f"max diff {err_s:.2e} m; X and good bit-exact: {exact}",
+           # the keyframes' arrays, poses, F21, projections and K read once,
+           # X, good and idx written; per available row and neighbour keypoint
+           # the epipolar gate (8 ops), per admitted pair the distance, the
+           # top-2 and the column atomic (28), per match the DLT, ray and
+           # gate geometry (~800)
+           n_bytes=nbytes(*(a for a in tri_args if torch.is_tensor(a)), F21)
+           + 4 * 12 * (B + 1) + B * N * (12 + 1 + 4),
+           n_ops=8 * n_gate + 28 * n_pairs + 800 * n_match, per_call=2)
+
+    # T: idx, dist and valid bit-exact
+    rk = fuse_match.fuse_match(*fuse_args)
+    rp = fuse_match.fuse_match_plain(*fuse_args)
+    check(all(torch.equal(a, b) for a, b in zip(rk, rp)),
+          f"kernel T differs: valid flips {int((rk.valid != rp.valid).sum())}")
+    rows, fpair = fuse_match.fuse_pairs(*(fuse_args[i] for i in (0, 2, 3, 4, 6)),
+                                        cam, 1.2, 3.0)
+    fpair = fpair & rows[..., None] & fuse_args[7][:, None, :]
+    D, P = fuse_args[0].shape[:2]
+    n_fp = int(fpair.sum())
+    record(fuse_match, 0.0, lambda: fuse_match.fuse_match(*fuse_args),
+           cuda_ms(lambda: fuse_match.fuse_match_plain(*fuse_args)),
+           f"D={D} P={P} N={fuse_args[4].shape[1]}: {int(rows.sum())} points in "
+           f"view, {n_fp} pairs in the radius, {int(rk.valid.sum())} matches; "
+           f"bit-exact",
+           # the windows, poses and keyframes read once, idx, dist and valid
+           # written; per point in view and keypoint the gate (6 ops), per
+           # admitted pair the distance and the min (26)
+           n_bytes=nbytes(*fuse_args[:8]) + 4 * 32 + D * P * 9,
+           n_ops=6 * int(rows.sum()) * fuse_args[4].shape[1] + 26 * n_fp)
+
+
 def ba_rows(dev, record):
     """Kernels E-H one step each against their plain versions on the first
     LM iteration of the local-BA window (K=16, M=1024, O=8), then the whole
@@ -180,6 +529,13 @@ def ba_rows(dev, record):
     def point_err(a, b):
         """largest point difference relative to the point's distance"""
         return ((a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-6)).max().item()
+
+    def library_solve(lin, prob, lam):
+        """ms of the library's Cholesky and triangular solves of kernel F's
+        damped 6K x 6K system (timed only; the port never calls them)"""
+        Sd, b_S, _ = ba_solve.damped_system(lin.S, lin.b_S, prob.opt_mask, lam)
+        return cuda_ms(lambda: torch.cholesky_solve(
+            b_S[:, None], torch.linalg.cholesky(Sd)))
 
     prob = problem(16, 1024)
     K, M, O = 16, 1024, 8
@@ -221,7 +577,9 @@ def ba_rows(dev, record):
     record(ba_solve, err_f, lambda: ba_solve.ba_solve(*f_args),
            cuda_ms(lambda: ba_solve.ba_solve_plain(*f_args)),
            f"6K={n}; trial poses max diff {err_f:.2e}, steps max diff "
-           f"{(dc_k - dc_p).abs().max().item():.2e}",
+           f"{(dc_k - dc_p).abs().max().item():.2e}; library: "
+           f"torch.linalg.cholesky + torch.cholesky_solve of the damped system",
+           library_ms=library_solve(lin_k, prob, lam),
            # S, b_S, masks and poses read once, steps and poses written;
            # n^3/3 multiply-adds of the Cholesky, two triangular solves,
            # the symmetrisation, ~200 ops per camera for se3_exp(dc) @ T
@@ -289,13 +647,21 @@ def ba_rows(dev, record):
         ms_p = cuda_ms(lambda: ba.optimize_ba_plain(cam, prob, iters=iters,
                                                     outlier_rounds=1),
                        reps=3, warmup=1)
+        lin = ba_linearize.ba_linearize(cam, prob.poses, prob.points, prob.point_valid,
+                                        prob.obs_kf, prob.obs_uvr, prob.obs_sigma2,
+                                        prob.obs_valid, lam, True)
+        f_lib = library_solve(lin, prob, lam)
+        f_ms = cuda_ms(lambda: ba_solve.ba_solve(lin.S, lin.b_S, prob.opt_mask, lam,
+                                                 prob.poses))
         print(f"ba K={K} M={M} O=8 iters={iters}+outlier round: kernels "
               f"{ms_k:.3f} ms ({dev_k:.3f} ms on the device) vs plain "
               f"{ms_p:.3f} ms; poses max diff {got['poses']:.2e}, points rel "
               f"{got['points']:.2e} ({got['points_all']:.2e} with the "
               f"{got['loose']} loose ones), reprojection {got['reproj']:.2e} "
               f"px, inlier flips {got['flips']:.1e}, cost "
-              f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}")
+              f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}; kernel F "
+              f"{f_ms:.4f} ms vs library Cholesky solve {f_lib:.4f} ms "
+              f"(6K={6 * K})")
 
 
 def extraction_kernels(extractor, frame):
@@ -530,7 +896,8 @@ def main():
     from orbslam2_tpu_torch.ops import image as img_ops
     from orbslam2_tpu_torch.ops import orb
     from orbslam2_tpu_torch.system import SlamSystem
-    from orbslam2_tpu_torch.tracking import TrackingState, predict_projection
+    from orbslam2_tpu_torch.kernels.project_gate import project_gate_plain
+    from orbslam2_tpu_torch.tracking import TrackingState
     from orbslam2_tpu_torch.utils.evaluation import ate_rmse
     from orbslam2_tpu_torch.utils.synthetic import render_sequence
 
@@ -626,38 +993,19 @@ def main():
     feats = extractor(img0)
     print("extraction on the card, all its device work: "
           + ", ".join(extraction_kernels(extractor, frames[0][0])))
-    N = feats.xy.shape[0]
-    P = 12288
     rng = np.random.default_rng(0)
-    xy_np = feats.xy.cpu().numpy()
-    depth0 = frames[0][1]
-    d_kp = depth0[np.clip(np.round(xy_np[:, 1]).astype(int), 0, H - 1),
-                  np.clip(np.round(xy_np[:, 0]).astype(int), 0, W - 1)]
-    n_real = N
-    pos = np.concatenate([rng.uniform(-2, 2, (P, 2)), rng.uniform(2, 6, (P, 1))], 1)
-    pos[:n_real, 0] = (xy_np[:, 0] - W / 2) / FX * d_kp
-    pos[:n_real, 1] = (xy_np[:, 1] - H / 2) / FX * d_kp
-    pos[:n_real, 2] = d_kp
-    desc_np = rng.integers(0, 256, (P, 32)).astype(np.uint8)
-    flips = rng.integers(0, 256, (n_real, 32)).astype(np.uint8) & \
-        rng.integers(0, 256, (n_real, 32)).astype(np.uint8) & \
-        rng.integers(0, 256, (n_real, 32)).astype(np.uint8)
-    desc_np[:n_real] = feats.desc.cpu().numpy() ^ flips
-    mp_pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
-    mp_valid = torch.from_numpy(rng.random(P) < 0.9).to(dev)
-    mp_valid[:n_real] = feats.valid
-    mp_normal = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(P, 3).contiguous()
-    mp_dmin = torch.full((P,), 0.3, device=dev)
-    mp_dmax = torch.from_numpy((pos[:, 2] * 1.2 ** 3).astype(np.float32)).to(dev)
+    local_map, d_kp = local_map_case(feats, frames[0][1], rng)
+    N, P = feats.xy.shape[0], local_map["pos"].shape[0]
+    mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax = (
+        local_map[k] for k in ("pos", "valid", "normal", "dmin", "dmax"))
     cam = Camera.create(FX, FX, W / 2, H / 2, bf=52.0, width=W, height=H)
     T_pred = torch.eye(4, device=dev)
     T_pred[0, 3] = 0.01
-    proj, r_px, pred_level, ur_pred, frustum = predict_projection(
+    proj, r_px, pred_level, ur_pred, row_valid = project_gate_plain(
         cam, T_pred, mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax, 15.0, 1.2, 8)
-    row_valid = mp_valid & frustum
     kp_ur = torch.where(feats.valid, feats.xy[:, 0] - 52.0 / 3.0,
                         torch.full_like(feats.xy[:, 0], -1.0))
-    c_args = (torch.from_numpy(desc_np).to(dev), proj, r_px, pred_level,
+    c_args = (local_map["desc"], proj, r_px, pred_level,
               ur_pred, row_valid, feats.desc, feats.xy, feats.octave,
               feats.valid, kp_ur)
     out_k = hamming.hamming_top2_gated(*c_args)
@@ -721,10 +1069,17 @@ def main():
            n_bytes=64 + Pd * (12 + 12 + 4 + 1) + 64 + 4 + Pd * (1 + 4),
            n_ops=4 * 10 * n_val * (90 + 160 + 40) + 4 * Pd * 40)
 
+    cascade_rows(dev, record, cam, local_map, feats, d_kp, T_pred)
+    bnd = {r["name"]: r["bound_ms"] for r in rows}
+    per_pass = sum(bnd[k] for k in ("project_gate", "hamming_top2_gated",
+                                    "claim_resolve", "pose_lm"))
+    print(f"cascade bound (a tracked frame): 3 x (O + C + Q + D) + R = "
+          f"{3 * per_pass + bnd['cascade_pack']:.6f} ms")
+    mapping_rows(dev, record, cam, extractor, frames, poses)
     ba_rows(dev, record)
-    front_rows(dev, record, img0, depth0, feats, cam)
-    print(f"device times: {len(rows)} kernels, every launch seen; profiles "
-          f"taken again for missing events: {profile_retries or 'none'}")
+    front_rows(dev, record, img0, frames[0][1], feats, cam)
+    print(f"device times: {len(rows)} kernels; profiles that missed launches "
+          f"(kernel, events, launches): {profile_retries or 'none'}")
 
     # ---- hot path: extraction + fused cascade per frame --------------------
     # (the reference bench's hot-path definition) against kernel C's local

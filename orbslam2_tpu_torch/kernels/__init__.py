@@ -17,18 +17,25 @@ time it launches the CUDA kernel:
   orb_select      J  cell top-8 + round-robin select  (ops/orb.py)
   rgbd_depth      L  depth sample, u_r, undistortion  (tracking.py)
   point_attrs     N  distinctive desc, normal, band   (map/state.py)
+  project_gate    O  projection, frustum, PredictScale (tracking.py)
+  claim_resolve   Q  match gates, keypoint claims     (tracking.py)
+  cascade_pack    R  pass choice, census, packed codes (tracking.py)
+  triangulate     S  epipolar match + DLT + gates     (local_mapping.py)
+  fuse_match      T  fuse projection search           (local_mapping.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
 """
 
-from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost, describe,
-               fast_score, hamming, orb_select, point_attrs, pose_lm, pyramid,
-               rgbd_depth)
+from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost,
+               cascade_pack, claim_resolve, describe, fast_score, fuse_match,
+               hamming, orb_select, point_attrs, pose_lm, project_gate,
+               pyramid, rgbd_depth, triangulate)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
-           point_attrs)
+           point_attrs, project_gate, claim_resolve, cascade_pack,
+           triangulate, fuse_match)
 
 
 def reset_launches():

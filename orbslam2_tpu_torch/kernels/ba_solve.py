@@ -30,8 +30,10 @@ REPLACES = "orbslam2_tpu/ops/ba.py:224"
 launches = 0
 
 
-def ba_solve_plain(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dc (K, 6), poses_n (K, 4, 4))."""
+def damped_system(S, b_S, opt_mask, lam):
+    """(Sd, b_S, fixedv): the system kernel F factorises, with the rows and
+    columns of fixed cameras replaced by the identity, each camera block
+    damped by lam times its mean diagonal, exactly symmetric."""
     K = opt_mask.shape[0]
     fixedv = (~opt_mask).repeat_interleave(6)
     keep = (~fixedv[:, None]) & (~fixedv[None, :])
@@ -40,7 +42,13 @@ def ba_solve_plain(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Te
     tr_k = torch.diagonal(S).reshape(K, 6).mean(1)
     add = lam * tr_k.clamp_min(1e-6)
     Sd = S + torch.diag(add.repeat_interleave(6))
-    Sd = 0.5 * (Sd + Sd.T)
+    return 0.5 * (Sd + Sd.T), b_S, fixedv
+
+
+def ba_solve_plain(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dc (K, 6), poses_n (K, 4, 4))."""
+    K = opt_mask.shape[0]
+    Sd, b_S, fixedv = damped_system(S, b_S, opt_mask, lam)
     # cholesky_ex neither raises nor synchronises; a failed factorization
     # yields NaN steps, which the cost test rejects (as the reference's NaN
     # Cholesky does)

@@ -46,8 +46,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "osl_fast_score_nms": [_P, _P, _P, _I, _I, _I, _P],
     "osl_orb_describe": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
-    "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I] + [_P] * 5,
-    "osl_pose_lm": [_P] * 5 + [_I] + [_F] * 5 + [_I, _I] + [_P] * 5,
+    "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I, _P, _I]
+    + [_P] * 5,
+    "osl_pose_lm": [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P, _I] + [_P] * 5,
     "osl_ba_linearize": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 6,
     "osl_ba_solve": [_P] * 5 + [_I] + [_P] * 4,
     "osl_ba_update_cost": [_P] * 12 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 5,
@@ -58,6 +59,15 @@ _SIGNATURES = {
     "osl_rgbd_depth": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _I] + [_F] * 9
     + [_P] * 4,
     "osl_point_attrs": [_P, _P, _P, _I] + [_P] * 4 + [_I, _I, _F, _F, _P, _P],
+    "osl_project_gate": [_P] * 6 + [_I] + [_F] * 5 + [_I, _I, _F, _F, _P, _I,
+                                                        _P, _I] + [_P] * 6,
+    "osl_claim_resolve": [_P] * 5 + [_I] + [_P] * 3 + [_I, _P, _I, _F, _P, _I]
+    + [_P] * 7,
+    "osl_cascade_pack": [_P] * 10 + [_I, _P, _P, _I, _F, _P, _P],
+    "osl_fuse_match": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_I, _I, _P, _I]
+    + [_P] * 4,
+    "osl_triangulate": [_P] * 15 + [_I, _I] + [_P] * 5 + [_F] * 3
+    + [_I, _P, _P, _I, _F] + [_P] * 8,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -158,6 +168,21 @@ def expect(name: str, device, specs):
             raise ValueError(
                 f"{name}: {label} must be a contiguous {dtype} {shape} on "
                 f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def gate_args(gate):
+    """(pointer, threshold) of a device gate ``(count, threshold)``: a
+    gated launch runs only while the () int32 ``count`` on the device is
+    below ``threshold``. (None, 0) without a gate."""
+    if gate is None:
+        return None, 0
+    count, threshold = gate
+    return count.data_ptr(), int(threshold)
+
+
+def gate_open(gate) -> bool:
+    """The plain versions' reading of a gate (a host sync on the card)."""
+    return gate is None or int(gate[0]) < int(gate[1])
 
 
 def stream_handle(device) -> int:

@@ -21,6 +21,8 @@
 // best_idx" rule. Rows with no admitted pair, or no second, report index 0
 // and distance INVALID as masked_top2 does, so all four outputs are
 // bit-exact integers against the plain version.
+// A launch given a gate (the retry pass of the tracking cascade) returns at
+// once unless the first pass's inlier count is below the threshold.
 #include "common.cuh"
 
 namespace {
@@ -54,8 +56,10 @@ __global__ void hamming_top2_kernel(
     int P, const uint8_t* __restrict__ kp_desc,
     const float* __restrict__ kp_xy, const int* __restrict__ kp_octave,
     const uint8_t* __restrict__ kp_valid, const float* __restrict__ kp_ur,
-    int N, int* __restrict__ best_idx, int* __restrict__ best,
-    int* __restrict__ second, int* __restrict__ second_idx) {
+    int N, const int* gate_n, int gate_min, int* __restrict__ best_idx,
+    int* __restrict__ best, int* __restrict__ second,
+    int* __restrict__ second_idx) {
+  if (gate_n != nullptr && !(*gate_n < gate_min)) return;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= P) return;  // whole warps exit together
@@ -113,14 +117,16 @@ OSL_EXPORT int osl_hamming_top2_gated(
     const uint8_t* mp_desc, const float* proj, const float* r_px,
     const int* pred_level, const float* ur_pred, const uint8_t* row_valid,
     int P, const uint8_t* kp_desc, const float* kp_xy, const int* kp_octave,
-    const uint8_t* kp_valid, const float* kp_ur, int N, int* best_idx,
-    int* best, int* second, int* second_idx, void* stream) {
+    const uint8_t* kp_valid, const float* kp_ur, int N, const int* gate_n,
+    int gate_min, int* best_idx, int* best, int* second, int* second_idx,
+    void* stream) {
   if (P <= 0) return 0;
   const int threads = 256;  // 8 rows per block
   const int blocks = (P * 32 + threads - 1) / threads;
   hamming_top2_kernel<<<blocks, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       mp_desc, proj, r_px, pred_level, ur_pred, row_valid, P, kp_desc, kp_xy,
-      kp_octave, kp_valid, kp_ur, N, best_idx, best, second, second_idx);
+      kp_octave, kp_valid, kp_ur, N, gate_n, gate_min, best_idx, best, second,
+      second_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,11 @@
 // from round 2). Built without FMA contraction; the block reduction sums in
 // another order than the plain version, so the pose agrees to rounding,
 // not bit for bit.
+// A launch given a gate (the retry pass of the tracking cascade) returns at
+// once unless the first pass's inlier count is below the threshold; the
+// retry writes its pose and count over the first pass's, so the gate count
+// and n_inliers may be one buffer (every thread reads the gate before the
+// first barrier, thread 0 writes the count after the last).
 #include "common.cuh"
 
 #include <math.h>
@@ -167,9 +172,10 @@ __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
                const float* __restrict__ obs, const float* __restrict__ sigma2,
                const uint8_t* __restrict__ valid, int N, Cam cam, int rounds,
-               int iters, float* __restrict__ T_out,
-               uint8_t* __restrict__ inliers, int* __restrict__ n_inliers,
-               float* __restrict__ chi2_out) {
+               int iters, const int* gate_n, int gate_min,
+               float* __restrict__ T_out, uint8_t* __restrict__ inliers,
+               int* n_inliers, float* __restrict__ chi2_out) {
+  if (gate_n != nullptr && !(*gate_n < gate_min)) return;
   __shared__ float T[16];
   __shared__ float Tn[16];
   __shared__ float scratch[kWarps][kNB];
@@ -284,11 +290,12 @@ OSL_EXPORT int osl_pose_lm(const float* T_init, const float* pts,
                            const float* obs, const float* sigma2,
                            const uint8_t* valid, int N, float fx, float fy,
                            float cx, float cy, float bf, int rounds, int iters,
-                           float* T_out, uint8_t* inliers, int* n_inliers,
-                           float* chi2_out, void* stream) {
+                           const int* gate_n, int gate_min, float* T_out,
+                           uint8_t* inliers, int* n_inliers, float* chi2_out,
+                           void* stream) {
   const Cam cam{fx, fy, cx, cy, bf};
   pose_lm_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T_init, pts, obs, sigma2, valid, N, cam, rounds, iters, T_out, inliers,
-      n_inliers, chi2_out);
+      T_init, pts, obs, sigma2, valid, N, cam, rounds, iters, gate_n, gate_min,
+      T_out, inliers, n_inliers, chi2_out);
   return static_cast<int>(cudaGetLastError());
 }

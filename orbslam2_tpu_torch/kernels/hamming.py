@@ -36,12 +36,14 @@ def projection_pair_mask(proj, r_px, pred_level, ur_pred, row_valid, kp_xy,
 
 def hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level, ur_pred,
                              row_valid, kp_desc, kp_xy, kp_octave, kp_valid,
-                             kp_ur) -> Tuple[torch.Tensor, ...]:
+                             kp_ur, gate=None) -> Tuple[torch.Tensor, ...]:
     """(best_idx, best, second, second_idx), each (P,) int32. Only valid
     rows are evaluated; the others get masked_top2's all-masked answer
-    (0, INVALID, INVALID, 0)."""
+    (0, INVALID, INVALID, 0). A closed ``gate`` leaves them unwritten."""
     P = mp_desc.shape[0]
     dev = mp_desc.device
+    if not build.gate_open(gate):
+        return tuple(torch.empty(P, dtype=torch.int32, device=dev) for _ in range(4))
     best_idx = torch.zeros(P, dtype=torch.int32, device=dev)
     second_idx = torch.zeros(P, dtype=torch.int32, device=dev)
     best = torch.full((P,), matching.INVALID, dtype=torch.int32, device=dev)
@@ -58,14 +60,16 @@ def hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level, ur_pred,
 
 
 def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
-                       kp_desc, kp_xy, kp_octave, kp_valid, kp_ur
+                       kp_desc, kp_xy, kp_octave, kp_valid, kp_ur, gate=None
                        ) -> Tuple[torch.Tensor, ...]:
-    """Kernel C on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel C on CUDA tensors, the plain version on CPU tensors. With a
+    ``gate`` (count, threshold) it runs only while the device count is below
+    the threshold."""
     global launches
     if mp_desc.device.type == "cpu":
         return hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level,
                                         ur_pred, row_valid, kp_desc, kp_xy,
-                                        kp_octave, kp_valid, kp_ur)
+                                        kp_octave, kp_valid, kp_ur, gate)
     dev = mp_desc.device
     args = dict(mp_desc=(mp_desc, torch.uint8), proj=(proj, torch.float32),
                 r_px=(r_px, torch.float32), pred_level=(pred_level, torch.int32),
@@ -82,12 +86,13 @@ def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
     if t["mp_desc"].shape != (P, 32) or t["kp_desc"].shape != (N, 32):
         raise ValueError(f"{NAME}: descriptors must be (n, 32)")
     out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(4)]
+    gate_n, gate_min = build.gate_args(gate)
     err = build.library().osl_hamming_top2_gated(
         t["mp_desc"].data_ptr(), t["proj"].data_ptr(), t["r_px"].data_ptr(),
         t["pred_level"].data_ptr(), t["ur_pred"].data_ptr(),
         t["row_valid"].data_ptr(), P, t["kp_desc"].data_ptr(),
         t["kp_xy"].data_ptr(), t["kp_octave"].data_ptr(),
-        t["kp_valid"].data_ptr(), t["kp_ur"].data_ptr(), N,
+        t["kp_valid"].data_ptr(), t["kp_ur"].data_ptr(), N, gate_n, gate_min,
         *(o.data_ptr() for o in out), build.stream_handle(dev))
     build.check(err, NAME)
     launches += 1

@@ -68,11 +68,34 @@ def residuals_jacobians(T, cam, pts, obs, is_stereo, with_jac=True):
     return r, J, z
 
 
-def pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10
+def _outputs(N, dev, out):
+    """(Tcw, inliers, n_inliers, chi2) buffers; ``out`` = (Tcw, n_inliers)
+    to write the pose and count into."""
+    T_out, n_inl = out if out is not None else (
+        torch.empty((4, 4), dtype=torch.float32, device=dev),
+        torch.empty((), dtype=torch.int32, device=dev))
+    return (T_out, torch.empty(N, dtype=torch.bool, device=dev), n_inl,
+            torch.empty(N, dtype=torch.float32, device=dev))
+
+
+def pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10,
+                  gate=None, out=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Tcw, inliers (N,) bool, n_inliers () int32, chi2 (N,)). Edges
     outside ``valid`` add exact zeros in the reference, so the LM runs on
-    the valid edges only."""
+    the valid edges only. ``gate`` and ``out`` as for ``pose_lm``."""
+    if not build.gate_open(gate):
+        return _outputs(pts_w.shape[0], pts_w.device, out)
+    T, inliers, n_inl, chi2 = _pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2,
+                                             valid, rounds, iters)
+    if out is not None:
+        out[0].copy_(T)
+        out[1].copy_(n_inl)
+        T, n_inl = out
+    return T, inliers, n_inl, chi2
+
+
+def _pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds, iters):
     sel = valid.nonzero()[:, 0]
     P, O, S2 = pts_w[sel], obs[sel], sigma2[sel]
     st = O[:, 2] >= 0
@@ -128,13 +151,18 @@ def pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10
     return T, inliers, inliers.sum().to(torch.int32), chi2
 
 
-def pose_lm(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10
+def pose_lm(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10,
+            gate=None, out=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel D on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel D on CUDA tensors, the plain version on CPU tensors. With a
+    ``gate`` (count, threshold) it runs only while the device count is below
+    the threshold; ``out`` = ((4, 4) pose, () int32 count) receives the
+    result, and may hold the gate's own count (the cascade's retry writes
+    over the first pass)."""
     global launches
     if pts_w.device.type == "cpu":
         return pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid,
-                             rounds, iters)
+                             rounds, iters, gate, out)
     dev = pts_w.device
     N = pts_w.shape[0]
     for name, t, dtype, shape in (
@@ -148,16 +176,17 @@ def pose_lm(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if rounds < 1:
         raise ValueError(f"{NAME}: rounds must be >= 1")
+    if out is not None:
+        build.expect(NAME, dev, (("out Tcw", out[0], torch.float32, (4, 4)),
+                                 ("out n_inliers", out[1], torch.int32, ())))
     T0, P, O, S2, V = (t.contiguous() for t in (Tcw_init, pts_w, obs, sigma2, valid))
-    T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
-    inliers = torch.empty(N, dtype=torch.bool, device=dev)
-    n_inl = torch.empty((), dtype=torch.int32, device=dev)
-    chi2 = torch.empty(N, dtype=torch.float32, device=dev)
+    T_out, inliers, n_inl, chi2 = _outputs(N, dev, out)
+    gate_n, gate_min = build.gate_args(gate)
     err = build.library().osl_pose_lm(
         T0.data_ptr(), P.data_ptr(), O.data_ptr(), S2.data_ptr(), V.data_ptr(),
         N, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, int(rounds), int(iters),
-        T_out.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(), chi2.data_ptr(),
-        build.stream_handle(dev))
+        gate_n, gate_min, T_out.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(),
+        chi2.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
     launches += 1
     return T_out, inliers, n_inl, chi2

@@ -2,11 +2,12 @@
 (port of ``orbslam2_tpu.local_mapping``).
 
 Re-design of the reference's LocalMapping (SURVEY §3.3): a pipeline stage
-invoked per keyframe. The device steps (epipolar matching + triangulation
-over all neighbours, the projection fuse over all 2N directions, local BA)
-are batched plain-PyTorch programs over gathered fixed-capacity windows on
-the map's device; the graph bookkeeping stays host-side on the
-single-writer MapState, unchanged from the reference.
+invoked per keyframe. The device steps run on gathered fixed-capacity
+windows on the map's device: epipolar matching and triangulation over all
+neighbours (kernel S), the projection fuse over all 2N directions (kernel
+T), the point attributes (kernel N) and local BA (kernels E-H); the graph
+bookkeeping stays host-side on the single-writer MapState, unchanged from
+the reference.
 """
 
 from __future__ import annotations
@@ -17,137 +18,11 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
+from .kernels import fuse_match as _fuse_match
+from .kernels import triangulate as _triangulate
 from .map.state import MapState
-from .models.camera import Camera, in_image, project
-from .ops import ba, geometry as geo, matching
-
-
-def _triangulate_neighbors(
-    desc1, xy1, oct1, avail1, depth1, ur1, T1,
-    desc2, xy2, oct2, avail2, depth2, ur2, T2, nb_ok,
-    K, baseline: float, bf: float, sf: float,
-):
-    """Match + DLT + source choice + acceptance gates against B neighbours
-    at once (the reference's CreateNewMapPoints inner loop, batched).
-
-    Current keyframe: (N, ...) arrays and T1 (4, 4); neighbours: (B, N, ...)
-    arrays, T2 (B, 4, 4), nb_ok (B,). Returns (X (B, N, 3), good (B, N),
-    idx (B, N)): SearchForTriangulation (epipolar gate, TH_LOW, ratio 0.6,
-    mutual), DLT vs measured-depth unprojection arbitrated by parallax
-    cosines, then cheirality, chi2 (with the u_right residual), parallax and
-    scale-consistency gates. Everything is masked, never compacted.
-    """
-    B, N = xy2.shape[:2]
-    F21 = matching.fundamental_from_poses(K, K, T1, T2)          # (B, 3, 3)
-    sigma2_nb = sf ** (2.0 * oct2.float())
-    xy1b = xy1.expand(B, N, 2)
-    pair = matching.epipolar_gate(xy1b, xy2, F21, sigma2_nb)
-    res = matching.match_descriptors(
-        desc1.expand(B, N, 32), desc2, avail1.expand(B, N), avail2,
-        pair_mask=pair, max_dist=matching.TH_LOW, nn_ratio=0.6, mutual=True,
-    )
-    idx = res.idx.clamp_min(0).long()
-    x1 = xy1b
-    x2 = xy2.gather(1, idx[..., None].expand(B, N, 2))
-    o2 = oct2.gather(1, idx)
-    d2m = depth2.gather(1, idx)
-    u_r2 = ur2.gather(1, idx)
-
-    P1 = (K @ T1[:3, :]).expand(B, 3, 4)
-    P2 = K @ T2[:, :3, :]
-    X_dlt = geo.triangulate_dlt(P1, P2, x1, x2)                  # (B, N, 3)
-
-    R1t = T1[:3, :3].T
-    R2t = T2[:, :3, :3].transpose(1, 2)
-    C1 = -(R1t @ T1[:3, 3])
-    C2 = -(R2t @ T2[:, :3, 3:4])[..., 0]                         # (B, 3)
-    Kinv = torch.linalg.inv(K)
-
-    # source arbitration (cosParallaxRays vs cosParallaxStereo)
-    ones = torch.ones((B, N, 1), dtype=x1.dtype, device=x1.device)
-    r1 = (torch.cat([x1, ones], -1) @ Kinv.T) @ R1t.T
-    r2 = (torch.cat([x2, ones], -1) @ Kinv.T) @ R2t.transpose(1, 2)
-    cos_rays = (r1 * r2).sum(-1) / (
-        torch.linalg.norm(r1, dim=-1) * torch.linalg.norm(r2, dim=-1)
-    ).clamp_min(1e-12)
-    has1 = (depth1 > 0).expand(B, N)
-    has2 = d2m > 0
-    two = torch.full_like(d2m, 2.0)
-    cosp1 = torch.where(has1, torch.cos(2 * torch.atan2(
-        torch.full_like(depth1, baseline / 2), depth1)), 2.0).expand(B, N)
-    cosp2 = torch.where(has2, torch.cos(2 * torch.atan2(
-        torch.full_like(d2m, baseline / 2), d2m)), two)
-    cosp_stereo = torch.minimum(cosp1, cosp2)
-    use_dlt = (cos_rays < cosp_stereo) & (cos_rays > 0) & (
-        has1 | has2 | (cos_rays < 0.9998))
-
-    def unproject(T, x, d):
-        Rt = T[..., :3, :3].transpose(-1, -2)
-        Cc = -(Rt @ T[..., :3, 3:4])[..., 0]
-        pc = torch.stack([
-            (x[..., 0] - K[0, 2]) / K[0, 0] * d,
-            (x[..., 1] - K[1, 2]) / K[1, 1] * d, d], -1)
-        return pc @ Rt.transpose(-1, -2) + Cc[..., None, :]
-
-    X = torch.where(use_dlt[..., None], X_dlt, torch.full_like(X_dlt, float("nan")))
-    pick1 = ~use_dlt & has1 & (cosp1 <= cosp2)
-    pick2 = ~use_dlt & has2 & ~pick1
-    X = torch.where(pick1[..., None],
-                    unproject(T1, xy1, depth1).expand(B, N, 3), X)
-    X = torch.where(pick2[..., None], unproject(T2, x2, d2m), X)
-
-    # acceptance gates (CreateNewMapPoints tail)
-    finite = torch.isfinite(X).all(-1)
-    Xs = torch.where(finite[..., None], X, torch.zeros_like(X))
-    pc1 = Xs @ T1[:3, :3].T + T1[:3, 3]
-    pc2 = Xs @ T2[:, :3, :3].transpose(1, 2) + T2[:, None, :3, 3]
-    z_ok = (pc1[..., 2] > 0.05) & (pc2[..., 2] > 0.05)
-
-    def reproj_ok(pc, x, octv, ur):
-        z = pc[..., 2].clamp_min(1e-9)
-        u = K[0, 0] * pc[..., 0] / z + K[0, 2]
-        v = K[1, 1] * pc[..., 1] / z + K[1, 2]
-        sig2 = sf ** (2.0 * octv.float())
-        e2 = (u - x[..., 0]) ** 2 + (v - x[..., 1]) ** 2
-        mono_ok = e2 <= 5.991 * sig2
-        e2s = e2 + (u - bf / z - ur) ** 2
-        return torch.where(ur >= 0, e2s <= 7.8 * sig2, mono_ok)
-
-    r_ok = reproj_ok(pc1, x1, oct1.expand(B, N), ur1.expand(B, N)) & \
-        reproj_ok(pc2, x2, o2, u_r2)
-    n1 = Xs - C1
-    n2 = Xs - C2[:, None, :]
-    d1 = torch.linalg.norm(n1, dim=-1)
-    d2 = torch.linalg.norm(n2, dim=-1)
-    cos_par = (n1 * n2).sum(-1) / (d1 * d2).clamp_min(1e-12)
-    par_ok = (cos_par < 0.9998) | ~use_dlt
-    ratio_dist = d2 / d1.clamp_min(1e-9)
-    ratio_oct = sf ** (o2.float() - oct1.float())
-    sc_ok = (ratio_dist < ratio_oct * sf * 1.5) & (
-        ratio_dist > ratio_oct / (sf * 1.5))
-
-    good = res.valid & nb_ok[:, None] & finite & z_ok & r_ok & par_ok & sc_ok
-    return torch.where(good[..., None], Xs, torch.zeros_like(Xs)), good, res.idx
-
-
-def _fuse_match(mp_pos, mp_desc, mp_valid, Tcw, kp_xy, kp_desc, kp_octave,
-                kp_valid, cam: Camera, scale_factor: float, radius_mult: float):
-    """ORBmatcher::Fuse projection search over D directions at once:
-    (D, P, ...) point windows into (D, N, ...) keyframes with poses Tcw
-    (D, 4, 4); radius radius_mult * sf^octave(kp), TH_LOW, no ratio test."""
-    R = Tcw[:, :3, :3]
-    t = Tcw[:, :3, 3]
-    pc = mp_pos @ R.transpose(1, 2) + t[:, None, :]
-    proj = project(cam, pc)
-    okz = (pc[..., 2] > 0.05) & in_image(cam, proj)
-    r_px = radius_mult * (scale_factor ** kp_octave.float())
-    d = proj[:, :, None, :] - kp_xy[:, None, :, :]
-    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
-    pair = d2 <= (r_px * r_px)[:, None, :]
-    return matching.match_descriptors(
-        mp_desc, kp_desc, mp_valid & okz, kp_valid,
-        pair_mask=pair, max_dist=matching.TH_LOW, nn_ratio=1.0,
-    )
+from .models.camera import Camera
+from .ops import ba
 
 
 class LocalMapper:
@@ -248,7 +123,7 @@ class LocalMapper:
         if gathered is None:
             return
         nb_arr, n_nbs, args = gathered
-        out = _triangulate_neighbors(*args)
+        out = _triangulate.triangulate(*args)
         X_all, good_all, idx_all = (t.cpu().numpy() for t in out)
         with m.lock:
             if m.correction_epoch != epoch:
@@ -425,7 +300,7 @@ class LocalMapper:
                 mir["kf_feat_valid"][dst],
             )
         # one batched program for all 2N projection-fuse directions
-        res_d = _fuse_match(*args, self.cam, float(np.float32(sf)), 3.0)
+        res_d = _fuse_match.fuse_match(*args, self.cam, float(np.float32(sf)), 3.0)
         rv_d = res_d.valid.cpu().numpy()
         ridx_d = res_d.idx.cpu().numpy()
         with m.lock:

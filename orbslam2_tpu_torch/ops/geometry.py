@@ -212,28 +212,34 @@ def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
     """Linear triangulation: (..., 3, 4) projections, (..., N, 2) pixels ->
     (..., N, 3) points. The smallest eigenvector of the equilibrated 4x4
     Gram matrix by three steps of damped inverse iteration, as the
-    reference computes it."""
+    reference computes it. The Gram matrix, its trace and the norms are
+    written term by term, in kernel S's order (a matrix product or a
+    reduction would let the card's libraries contract or reorder them)."""
 
     def rows(P, x):
         u, v = x[..., 0:1], x[..., 1:2]
         p0 = P[..., None, 0, :]
         p1 = P[..., None, 1, :]
         p2 = P[..., None, 2, :]
-        return torch.stack([u * p2 - p0, v * p2 - p1], dim=-2)
+        return [u * p2 - p0, v * p2 - p1]                       # (..., N, 4)
 
-    A = torch.cat([rows(P1, x1), rows(P2, x2)], dim=-2)        # (..., N, 4, 4)
-    AtA = A.transpose(-1, -2) @ A
-    diag = torch.diagonal(AtA, dim1=-2, dim2=-1)
+    A = rows(P1, x1) + rows(P2, x2)
+    G = A[0][..., :, None] * A[0][..., None, :]
+    for a in A[1:]:
+        G = G + a[..., :, None] * a[..., None, :]                # (..., N, 4, 4)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
     d = 1.0 / torch.sqrt(diag.clamp_min(1e-12))
-    B = AtA * d[..., None, :] * d[..., :, None]
-    tr = torch.diagonal(B, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    B = G * d[..., None, :] * d[..., :, None]
+    tr = B[..., 0, 0] + B[..., 1, 1] + B[..., 2, 2] + B[..., 3, 3]
     eye4 = torch.eye(4, dtype=B.dtype, device=B.device)
-    damped = B + (1e-7 * tr + 1e-12) * eye4
+    damped = B + (1e-7 * tr + 1e-12)[..., None, None] * eye4
     Y = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=B.dtype,
                      device=B.device).expand(B.shape[:-1])
     for _ in range(3):
         Y = linalg_small.solve_spd_small(damped, Y)
-        Y = Y / torch.linalg.norm(Y, dim=-1, keepdim=True).clamp_min(_EPS)
+        y = [Y[..., k] for k in range(4)]
+        nrm = torch.sqrt(y[0] * y[0] + y[1] * y[1] + y[2] * y[2] + y[3] * y[3])
+        Y = Y / nrm.clamp_min(_EPS)[..., None]
     X = Y * d
     w = X[..., 3]
     safe_w = torch.where(w.abs() < _EPS, torch.where(w < 0, -_EPS, _EPS), w)

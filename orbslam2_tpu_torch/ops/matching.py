@@ -3,9 +3,9 @@
 
 Every SearchBy* overload is the same batched pattern: pair mask (geometry
 gates) -> masked Hamming top-2 -> distance / ratio / mutual / rotation
-gates. The projection tracker's hot instance of this pattern runs in kernel
-C (``kernels/hamming.py``); the matchers here serve the reference-keyframe
-fallback, triangulation and fuse, and are kernel C's plain reference.
+gates. On the card its instances run in kernels: the projection tracker's
+in C and Q, triangulation's in S, fuse's in T; the matchers here serve the
+reference-keyframe fallback and those kernels' plain versions.
 
 Hamming distances come from a float32 product of the unpacked {0,1} bits,
 which is exact (sums <= 256) with TF32 off.
@@ -152,12 +152,13 @@ def octave_gate(octave_a: torch.Tensor, octave_b: torch.Tensor, lo: int = 0,
 def epipolar_gate(kp1_xy: torch.Tensor, kp2_xy: torch.Tensor, F12: torch.Tensor,
                   sigma2_level2: torch.Tensor) -> torch.Tensor:
     """Pairs whose point-to-epipolar-line distance^2 < 3.84 sigma^2 of the
-    level of kp2; batched over leading dimensions."""
-    ones1 = torch.ones(kp1_xy.shape[:-1] + (1,), dtype=kp1_xy.dtype,
-                       device=kp1_xy.device)
-    x1h = torch.cat([kp1_xy, ones1], dim=-1)
-    lines = x1h @ F12.transpose(-1, -2)
-    a, b, c = lines[..., 0:1], lines[..., 1:2], lines[..., 2:3]
+    level of kp2; batched over leading dimensions. The lines F12 (x, y, 1)
+    are written term by term, in kernel S's order (a matrix product would
+    let the card's library contract or reorder the sums)."""
+    x, y = kp1_xy[..., 0], kp1_xy[..., 1]
+    F = F12[..., None, :, :]
+    a, b, c = (x * F[..., k, 0] + y * F[..., k, 1] + F[..., k, 2] for k in range(3))
+    a, b, c = a[..., None], b[..., None], c[..., None]
     num = a * kp2_xy[..., None, :, 0] + b * kp2_xy[..., None, :, 1] + c
     den = a * a + b * b
     d2 = (num * num) / den.clamp_min(1e-12)

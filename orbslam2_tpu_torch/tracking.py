@@ -5,9 +5,10 @@ The same FSM as the reference (NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST),
 motion-model + local-map tracking and the keyframe decision. Per frame:
 
   extract (ops.orb: kernels I, A, J, B) -> depth sampling and undistortion
-  (kernel L) -> fused cascade: up to four passes of project / frustum gates
-  / gated Hamming top-2 (kernel C) / claim resolution / motion-only LM
-  (kernel D) -> one packed result to the host.
+  (kernel L) -> fused cascade: up to four passes of projection and frustum
+  gates (kernel O) / gated Hamming top-2 (kernel C) / match gates and claim
+  resolution (kernel Q) / motion-only LM (kernel D), the retry decided on
+  the device, then the packed result (kernel R) -> one copy to the host.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
 queue-1 slice): monocular and stereo initialisation (slice 6),
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import enum
 import time
+from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,10 +29,14 @@ import torch
 
 from .config import SlamConfig
 from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
+from .kernels import cascade_pack as _cascade_pack
+from .kernels import claim_resolve as _claim_resolve
 from .kernels import hamming as _hamming
+from .kernels import pose_lm as _pose_lm
+from .kernels import project_gate as _project_gate
 from .kernels import rgbd_depth as _rgbd_depth
 from .map.state import MapState
-from .models.camera import Camera, in_image, project, undistort_points
+from .models.camera import Camera, undistort_points
 from .ops import matching, orb, pose_opt
 
 
@@ -67,167 +73,79 @@ class FrameData:
 
 
 # ---------------------------------------------------------------------------
-# Tracking cascade: project local points -> gated match -> pose LM
+# Tracking cascade: project local points -> gated match -> claims -> pose LM
 # ---------------------------------------------------------------------------
 
-def predict_projection(cam: Camera, Tcw_pred, mp_pos, mp_valid, mp_normal,
-                       mp_dmin, mp_dmax, radius_mult: float,
-                       scale_factor: float, n_levels: int):
-    """Per local point: projection (P, 2), search radius (P,), predicted
-    level (P,) int32, predicted u_right (P,), and the frustum mask
-    (isInFrustum: depth in the scale band, in image, view angle < 60 deg)."""
-    dev = mp_pos.device
-    R = Tcw_pred[:3, :3]
-    t = Tcw_pred[:3, 3]
-    pc = mp_pos @ R.T + t
-    z = pc[:, 2]
-    proj = project(cam, pc)
-
-    cam_center = -(R.T @ t)
-    vec = mp_pos - cam_center
-    dist = torch.linalg.norm(vec, dim=1)
-    cos_view = (vec * mp_normal).sum(1) / dist.clamp_min(1e-9)
-    in_frustum = (
-        (z > 0.1)
-        & in_image(cam, proj)
-        & (dist >= 0.8 * mp_dmin)
-        & (dist <= 1.2 * mp_dmax)
-        & (cos_view > 0.5)
-    )
-
-    # PredictScale
-    sf = torch.tensor(scale_factor, dtype=torch.float32, device=dev)
-    ratio = (mp_dmax / dist.clamp_min(1e-9)).clamp_min(1e-6)
-    pred_level = torch.ceil(torch.log(ratio) / torch.log(sf)).to(torch.int32) \
-        .clamp(0, n_levels - 1)
-    r_px = radius_mult * torch.pow(sf, pred_level.float())
-    ur_pred = proj[:, 0] - cam.bf / z.clamp_min(1e-6)
-    return proj, r_px, pred_level, ur_pred, in_frustum
+# the cascade's kernels (each runs its plain version on CPU tensors), and
+# the plain versions alone, which chip_smoke.py runs on the card as the
+# cascade's reference
+_KERNELS = SimpleNamespace(
+    project_gate=_project_gate.project_gate,
+    hamming_top2_gated=_hamming.hamming_top2_gated,
+    claim_resolve=_claim_resolve.claim_resolve, pose_lm=_pose_lm.pose_lm,
+    cascade_pack=_cascade_pack.cascade_pack)
+_PLAIN = SimpleNamespace(
+    project_gate=_project_gate.project_gate_plain,
+    hamming_top2_gated=_hamming.hamming_top2_gated_plain,
+    claim_resolve=_claim_resolve.claim_resolve_plain,
+    pose_lm=_pose_lm.pose_lm_plain,
+    cascade_pack=_cascade_pack.cascade_pack_plain)
 
 
-def _project_match_opt(
-    cam: Camera, Tcw_pred, mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin,
-    mp_dmax, kp_xy, kp_desc, kp_octave, kp_valid, kp_ur,
-    radius_mult: float, scale_factor: float, n_levels: int, max_dist: int,
-    nn_ratio: float, do_pose_opt: bool,
-):
-    """One SearchByProjection + PoseOptimization pass.
-
-    Returns (PoseOptResult, MatchResult, keep (P,), in_frustum (P,)).
-    """
-    dev = mp_pos.device
-    proj, r_px, pred_level, ur_pred, in_frustum = predict_projection(
-        cam, Tcw_pred, mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax,
-        radius_mult, scale_factor, n_levels)
-    sf = torch.tensor(scale_factor, dtype=torch.float32, device=dev)
-
-    # gated best / second-best per point (kernel C on the card)
-    row_valid = mp_valid & in_frustum
-    best_idx, best, second, second_idx = _hamming.hamming_top2_gated(
-        mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
-        kp_desc, kp_xy, kp_octave, kp_valid, kp_ur)
-    ok = (best <= max_dist) & row_valid
-    ratio_ok = best.float() < nn_ratio * second.float()
-    same_lvl = kp_octave[best_idx.long()] == kp_octave[second_idx.long()]
-    ok = ok & (ratio_ok | ~same_lvl)
-    res = matching.MatchResult(
-        idx=torch.where(ok, best_idx, torch.full_like(best_idx, -1)),
-        dist=torch.where(ok, best, torch.full_like(best, matching.INVALID)),
-        valid=ok,
-    )
-
-    # several map points claiming one keypoint: keep the lowest distance,
-    # then the lowest point index
-    P = mp_pos.shape[0]
-    N = kp_xy.shape[0]
-    idx_l = res.idx.long()
-    claim = torch.where(res.valid, idx_l, torch.full_like(idx_l, N - 1))
-    kp_best = torch.full((N,), matching.INVALID, dtype=torch.int32, device=dev)
-    kp_best = kp_best.scatter_reduce(
-        0, claim, torch.where(res.valid, res.dist,
-                              torch.full_like(res.dist, matching.INVALID)),
-        reduce="amin")
-    keep = res.valid & (res.dist <= kp_best[idx_l.clamp_min(0)])
-    pidx = torch.arange(P, dtype=torch.int32, device=dev)
-    claim = torch.where(keep, idx_l, torch.full_like(idx_l, N - 1))
-    first_claim = torch.full((N,), P, dtype=torch.int32, device=dev)
-    first_claim = first_claim.scatter_reduce(
-        0, claim, torch.where(keep, pidx, torch.full_like(pidx, P)),
-        reduce="amin")
-    keep = keep & (first_claim[idx_l.clamp_min(0)] == pidx)
-
-    idx = torch.where(keep, idx_l, torch.zeros_like(idx_l))
-    obs = torch.cat([kp_xy[idx], torch.where(
-        keep, kp_ur[idx], torch.full_like(kp_ur[idx], -1.0))[:, None]], 1)
-    sigma2 = torch.pow(sf, 2.0 * kp_octave[idx].float())
-
-    if do_pose_opt:
-        opt = pose_opt.optimize_pose(Tcw_pred, cam, mp_pos, obs, sigma2, keep)
-    else:
-        opt = pose_opt.PoseOptResult(
-            Tcw=Tcw_pred, inliers=keep, n_inliers=keep.sum().to(torch.int32),
-            chi2=torch.zeros_like(sigma2))
-    return opt, res, keep, in_frustum
+def project_match(k, cam: Camera, Tcw, mp_pos, mp_desc, mp_valid, mp_normal,
+                  mp_dmin, mp_dmax, kp_xy, kp_desc, kp_octave, kp_valid, kp_ur,
+                  radius: float, scale_factor: float, n_levels: int, gate=None):
+    """One SearchByProjection through the functions of ``k`` (_KERNELS or
+    _PLAIN): projection and gates (O), gated Hamming top-2 (C), match gates
+    and claims (Q). Returns (Projection, Claims)."""
+    pr = k.project_gate(cam, Tcw, mp_pos, mp_valid, mp_normal, mp_dmin,
+                        mp_dmax, radius, scale_factor, n_levels, gate=gate)
+    top2 = k.hamming_top2_gated(mp_desc, pr.proj, pr.r_px, pr.pred_level,
+                                pr.ur_pred, pr.row_valid, kp_desc, kp_xy,
+                                kp_octave, kp_valid, kp_ur, gate=gate)
+    claims = k.claim_resolve(*top2, pr.row_valid, kp_xy, kp_octave, kp_ur,
+                             scale_factor, matching.TH_HIGH, 0.9, gate=gate)
+    return pr, claims
 
 
 def track_frame_fused(
     cam: Camera, Tcw_pred, mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin,
     mp_dmax, kp_xy, kp_desc, kp_octave, kp_valid, kp_ur, kp_depth,
     th_depth: float, radius: float, scale_factor: float, n_levels: int,
-    min_inliers_track: int,
+    min_inliers_track: int, plain: bool = False,
 ) -> torch.Tensor:
     """The whole per-frame tracking cascade; returns the packed result
     [Tcw(16), n_motion, n_final, n_tracked_close, n_untracked_close,
     code per point (P)] as one (20 + P,) float32 tensor.
 
-    Passes: motion model at ``radius`` (retried at 2x when it admits fewer
-    than ``min_inliers_track`` inliers), a local-map pass at 4 px from the
+    Passes: motion model at ``radius``, retried at 2x when it admits fewer
+    than ``min_inliers_track`` inliers, a local-map pass at 4 px from the
     refined pose and a tight pass at 2 px, keeping the better of the last
-    two. The per-point code is (kp_idx + 1) * 4 + inlier * 2 + frustum.
+    two (kernel R). The per-point code is (kp_idx + 1) * 4 + inlier * 2 +
+    frustum. Each pass is kernels O, C, Q, D. The retry is decided on the
+    device: its launches read pass 1's inlier count and return at once
+    unless it is below the threshold, and its pose and count overwrite pass
+    1's; every pose stays on the device, so on the card the host waits only
+    for the caller's one copy of the result. ``plain`` runs the kernels'
+    plain versions on any device.
     """
+    k = _PLAIN if plain else _KERNELS
+    mp = (mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin, mp_dmax)
+    kp = (kp_xy, kp_desc, kp_octave, kp_valid, kp_ur)
 
-    def run(Tcw, r):
-        return _project_match_opt(
-            cam, Tcw, mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin, mp_dmax,
-            kp_xy, kp_desc, kp_octave, kp_valid, kp_ur, r, scale_factor,
-            n_levels, matching.TH_HIGH, 0.9, True)
+    def run(Tcw, r, gate=None, out=None):
+        pr, cl = project_match(k, cam, Tcw, *mp, *kp, r, scale_factor,
+                               n_levels, gate)
+        T, inl, n, _ = k.pose_lm(Tcw, cam, mp_pos, cl.obs, cl.sigma2, cl.keep,
+                                 gate=gate, out=out)
+        return T, inl, n, cl.kp_of_mp, pr.row_valid
 
-    opt1, _, _, _ = run(Tcw_pred, radius)
-    if int(opt1.n_inliers) < min_inliers_track:
-        opt1, _, _, _ = run(Tcw_pred, 2.0 * radius)
-    Tcw1, n_motion = opt1.Tcw, opt1.n_inliers
-
-    opt2, res2, keep2, frustum2 = run(Tcw1, 4.0)
-    opt3, res3, keep3, _ = run(opt2.Tcw, 2.0)
-    use3 = opt3.n_inliers >= opt2.n_inliers
-    Tcw = torch.where(use3, opt3.Tcw, opt2.Tcw)
-    n_final = torch.where(use3, opt3.n_inliers, opt2.n_inliers)
-    inl = torch.where(use3, opt3.inliers, opt2.inliers)
-    neg = torch.full_like(res2.idx, -1)
-    kp_of_mp = torch.where(use3, torch.where(keep3, res3.idx, neg),
-                           torch.where(keep2, res2.idx, neg))
-
-    # close-point census for the keyframe decision (nTrackedClose /
-    # nNonTrackedClose), carried in the packed result
-    N = kp_xy.shape[0]
-    tracked_row = inl & (kp_of_mp >= 0)
-    kp_tracked = torch.zeros(N + 1, dtype=torch.bool, device=mp_pos.device)
-    kp_tracked[torch.where(tracked_row, kp_of_mp.long(),
-                           torch.full_like(kp_of_mp.long(), N))] = True
-    kp_tracked[N] = False
-    kp_tracked = kp_tracked[:N]
-    close = kp_valid & (kp_depth > 0) & (kp_depth < th_depth)
-    n_tracked_close = (close & kp_tracked).sum()
-    n_untracked_close = (close & ~kp_tracked).sum()
-
-    code = (kp_of_mp + 1) * 4 + inl.to(torch.int32) * 2 \
-        + (mp_valid & frustum2).to(torch.int32)
-    return torch.cat([
-        Tcw.reshape(-1),
-        torch.stack([n_motion.float(), n_final.float(),
-                     n_tracked_close.float(), n_untracked_close.float()]),
-        code.float(),
-    ])
+    T1, _, n1, _, _ = run(Tcw_pred, radius)
+    run(Tcw_pred, 2.0 * radius, gate=(n1, min_inliers_track), out=(T1, n1))
+    T2, inl2, n2, kp2, frustum2 = run(T1, 4.0)
+    T3, inl3, n3, kp3, _ = run(T2, 2.0)
+    return k.cascade_pack(T2, n2, inl2, kp2, T3, n3, inl3, kp3, n1, frustum2,
+                          kp_valid, kp_depth, th_depth)
 
 
 # ---------------------------------------------------------------------------

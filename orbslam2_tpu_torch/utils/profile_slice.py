@@ -1,23 +1,29 @@
 """Where the time goes in the RGB-D slice on one GPU.
 
-    python -m orbslam2_tpu_torch.utils.profile_slice [--frames 36] [--reps 3]
+    python -m orbslam2_tpu_torch.utils.profile_slice [--frames 36] [--reps 2]
 
 Runs ``SlamSystem`` (RGB-D, 640x480, 1000 features, 8 levels: the
-configuration ``chip_smoke.py`` drives) over rendered frames ``--reps``
-times in one process, each rep on a new system. Every rep prints its
-frames/s. All reps but the last also print host-clock time per stage: the
-tracker and local-mapper methods are wrapped so that each call ends in
-``torch.cuda.synchronize()``, which serialises host and device and so slows
-the run it measures. The last rep has no stage timers; it runs
-``torch.profiler`` over frames 12-23 and prints the device's busy share
-(the time of CUDA kernel and memcpy events only, over the window's wall
-time, which the profiler's own host overhead lengthens), the device events
-per frame, and the kernels with the most device time. Needs a CUDA device.
+configuration ``chip_smoke.py`` drives) over rendered frames in one
+process, ``--reps`` reps and then two profiled ones, each rep on a new
+system. Every rep prints its frames/s. The first ``--reps`` print host-clock
+time per stage: the tracker and local-mapper methods are wrapped so that
+each call ends in ``torch.cuda.synchronize()``, which serialises host and
+device and so slows the run it measures. The two profiled reps run
+``torch.profiler`` over frames 12-23. The first of them keeps the stage wrappers and marks each call with
+``torch.profiler.record_function``; since each call ends in a synchronise,
+the device events inside a call's window are that stage's work, and each
+stage's wall time splits into device busy time and the rest, the time the
+device waits on the host. The last rep has no stage wrappers; it prints the
+device's busy share (the time of CUDA kernel, memset and memcpy events
+only, over the window's wall time, which the profiler's own host overhead
+lengthens), the device events per frame, and the kernels with the most
+device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import subprocess
 import time
 
@@ -39,24 +45,61 @@ MAPPER_STAGES = ("_create_new_points", "_fuse_neighbors",
                  "_cull_map_points")
 
 
-def _timed(obj, name, key, acc):
+def _timed(obj, name, key, acc, mark=False):
+    """Wrap ``obj.name`` so that each call ends in a synchronise and adds its
+    host-clock time to ``acc[key]``; with ``mark``, inside a profiler range
+    named "stage:<key>"."""
     fn = getattr(obj, name)
 
     def wrapper(*a, **k):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
+        if mark:
+            with torch.profiler.record_function("stage:" + key):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+        else:
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
         acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
         return out
 
     setattr(obj, name, wrapper)
 
 
+def _is_device(e) -> bool:
+    return e.device_type == torch.autograd.DeviceType.CUDA
+
+
+def stage_split(prof) -> dict:
+    """{stage: (calls, wall ms, device busy ms)} from the "stage:" ranges
+    of a profile and the device events that overlap them."""
+    windows, busy = {}, []
+    for e in prof.events():
+        if e.name.startswith("stage:"):
+            if not _is_device(e):   # the range's device-side copy is no work
+                windows.setdefault(e.name[6:], []).append(
+                    (e.time_range.start, e.time_range.end))
+        elif _is_device(e):
+            busy.append((e.time_range.start, e.time_range.end))
+    busy.sort()
+    starts = [b[0] for b in busy]
+    out = {}
+    for key, ws in windows.items():
+        wall = dev = 0.0
+        for a, b in ws:
+            wall += b - a
+            for d0, d1 in busy[:bisect.bisect_left(starts, b)]:
+                if d1 > a:
+                    dev += min(d1, b) - max(d0, a)
+        out[key] = (len(ws), wall / 1e3, dev / 1e3)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=36)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
@@ -73,20 +116,23 @@ def main():
                             height=H, bf=52.0, fps=30),
         extractor=ExtractorConfig(n_features=1000, n_levels=8))
     dev = torch.device("cuda")
-    for rep in range(args.reps):
-        last = rep == args.reps - 1
+    split = None
+    for rep in range(args.reps + 2):
+        profiled = rep >= args.reps
+        last = rep == args.reps + 1
         slam = SlamSystem(cfg, device=dev)
         acc = {}
         if not last:
             for name, key in TRACKER_STAGES.items():
-                _timed(slam.tracker, name, key, acc)
+                _timed(slam.tracker, name, key, acc, mark=profiled)
             for name in MAPPER_STAGES:
-                _timed(slam.local_mapper, name, "map:" + name, acc)
-            _timed(slam.local_mapper, "process_keyframe", "mapping_total", acc)
+                _timed(slam.local_mapper, name, "map:" + name, acc, mark=profiled)
+            _timed(slam.local_mapper, "process_keyframe", "mapping_total", acc,
+                   mark=profiled)
         prof = None
         times = []
         for i, (img, depth) in enumerate(frames):
-            if last and i == WINDOW[0]:
+            if profiled and i == WINDOW[0]:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
@@ -100,16 +146,23 @@ def main():
                 wall = time.perf_counter() - t_win
                 prof.__exit__(None, None, None)
         total = sum(times)
-        print(f"rep {rep}{' (profiled, no stage timers)' if last else ''}: "
-              f"{len(times)} frames {total:.3f} s = {len(times) / total:.2f} "
-              f"frames/s; {len(slam.map.valid_keyframes())} keyframes")
+        kind = (" (profiled, no stage timers)" if last else
+                " (profiled, stage split)" if profiled else "")
+        print(f"rep {rep}{kind}: {len(times)} frames {total:.3f} s = "
+              f"{len(times) / total:.2f} frames/s; "
+              f"{len(slam.map.valid_keyframes())} keyframes")
+        if profiled and not last:
+            split = stage_split(prof)
+            continue
         for key, v in sorted(acc.items(), key=lambda kv: -kv[1]):
             print(f"  {key:34s} {v * 1e3:9.1f} ms ({100 * v / total:5.1f}%)")
-    if prof is None:
-        return
+    print(f"stage split over frames {WINDOW[0]}-{WINDOW[1] - 1} (profiled, each "
+          f"call synchronised): calls, wall ms, device busy ms, host ms "
+          f"(wall - busy)")
+    for key, (n, wall, busy) in sorted(split.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {key:34s} {n:4d} {wall:9.2f} {busy:9.2f} {wall - busy:9.2f}")
     # device events only: an aten op's device time repeats its kernels'
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = [e for e in prof.key_averages() if _is_device(e)]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e3
     n_frames = WINDOW[1] - WINDOW[0]
     n_launch = sum(e.count for e in dev_events)

@@ -420,3 +420,154 @@ def test_front_end_at_larger_frames(cuda, hw):
                         orb_select.orb_select_plain(raw, nms, n, 20.0, 7.0)):
             assert torch.equal(a, b), lvl
         prev = lk
+
+
+def _main_path_cascade(dev):
+    """chip_smoke's cascade case: the 640x480 frame's N=1024 keypoints and
+    a P=12288 local map around them; the prediction 1 cm off."""
+    import chip_smoke
+
+    Kb = np.array([[520.0, 0, 320], [0, 520, 240], [0, 0, 1]], np.float32)
+    img, depth = render_sequence(1, Kb, width=640, height=480, with_depth=True)[0][0]
+    ext = orb.OrbExtractor(ExtractorConfig(n_features=1000, n_levels=8), 480, 640,
+                           device=dev)
+    feats = ext(img)
+    local_map, d_kp = chip_smoke.local_map_case(feats, depth, np.random.default_rng(0))
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0, width=640, height=480)
+    T_pred = torch.eye(4, device=dev)
+    T_pred[0, 3] = 0.01
+    return cam, chip_smoke.cascade_case(cam, local_map, feats, d_kp), T_pred
+
+
+def test_projection_and_claims_bit_exact(cuda):
+    """Kernels O and Q at P=12288, N=1024: projection, u_right, frustum and
+    (where the predicted level agrees, >= 99.9% of points) the radius
+    bit-exact; claims, keep, observations and sigma^2 bit-exact."""
+    from orbslam2_tpu_torch.kernels import claim_resolve, project_gate
+
+    cam, args, T_pred = _main_path_cascade(cuda)
+    o_args = (cam, T_pred, args[0], args[2], args[3], args[4], args[5], 15.0, 1.2, 8)
+    ok_, op_ = project_gate.project_gate(*o_args), project_gate.project_gate_plain(*o_args)
+    same = ok_.pred_level == op_.pred_level
+    assert same.float().mean().item() >= 0.999
+    for a, b in (ok_.proj, op_.proj), (ok_.ur_pred, op_.ur_pred), \
+            (ok_.row_valid, op_.row_valid), (ok_.r_px[same], op_.r_px[same]):
+        assert torch.equal(a, b)
+    top2 = hamming.hamming_top2_gated(args[1], *ok_[:4], ok_.row_valid, args[7],
+                                      args[6], args[8], args[9], args[10])
+    q_args = (*top2, ok_.row_valid, args[6], args[8], args[10], 1.2, 100, 0.9)
+    qk = claim_resolve.claim_resolve(*q_args)
+    for a, b in zip(qk, claim_resolve.claim_resolve_plain(*q_args)):
+        assert torch.equal(a, b)
+    assert qk.keep.sum() > 100
+
+
+@pytest.mark.parametrize("retry", [False, True])
+def test_cascade_matches_plain_cascade(cuda, retry):
+    """The whole cascade (kernels O, C, Q, D, R, the retry decided on the
+    device) against the plain cascade on the card, from a prediction the
+    first pass tracks and from one 0.05 rad off, which only the retry
+    tracks: pose 1e-4, counts within 1%, codes >= 99% equal."""
+    import chip_smoke
+    from orbslam2_tpu_torch import tracking
+
+    cam, args, T_pred = _main_path_cascade(cuda)
+    if retry:
+        T_pred = chip_smoke.yawed(T_pred, chip_smoke.RETRY_YAW)
+    assert (chip_smoke.first_pass_inliers(cam, T_pred, args) < 10) == retry
+    fused = (cam, T_pred, *args, chip_smoke.census_depth(args), 15.0, 1.2, 8, 10)
+    kernels.reset_launches()
+    pk = tracking.track_frame_fused(*fused)
+    counts = kernels.launch_counts()
+    pp = tracking.track_frame_fused(*fused, plain=True)
+    assert (pk[:16] - pp[:16]).abs().max().item() <= 1e-4
+    for i in range(16, 20):
+        assert abs(pk[i].item() - pp[i].item()) <= max(0.01 * pp[i].item(), 1)
+    assert (pk[20:] == pp[20:]).float().mean().item() >= 0.99
+    assert pp[17] > 100
+    # four passes of O, C, Q, D (the retry's launches return at once when
+    # it is not taken) and one R
+    for name in ("project_gate", "hamming_top2_gated", "claim_resolve", "pose_lm"):
+        assert counts[name] == 4, (name, counts[name])
+    assert counts["cascade_pack"] == 1
+
+
+def test_cascade_runs_only_its_kernels(cuda):
+    """One frame's cascade from the prediction's upload to the packed
+    result on the host: kernels O, C, Q, D, R, memsets and the upload, and
+    exactly one device-to-host copy (no host sync between the passes)."""
+    import chip_smoke
+    from orbslam2_tpu_torch import tracking
+
+    cam, args, T_pred = _main_path_cascade(cuda)
+    T_np = T_pred.cpu().numpy()
+    chip_smoke.cascade_kernels(lambda: tracking.track_frame_fused(
+        cam, torch.from_numpy(T_np).to(cuda), *args, 3.5, 15.0, 1.2, 8, 10).cpu())
+
+
+def test_triangulate_and_fuse_match_plain(cuda):
+    """Kernel S (B=10, N=1024) and kernel T (D=20, P=N=1024) on keyframes
+    from rendered 640x480 frames: S's match indices exact, good flips <=
+    max(2, 1%), X within 1e-4 m; T's idx, dist and valid bit-exact."""
+    import chip_smoke
+    from orbslam2_tpu_torch.kernels import fuse_match, triangulate
+
+    Kb = np.array([[520.0, 0, 320], [0, 520, 240], [0, 0, 1]], np.float32)
+    frames, poses = render_sequence(31, Kb, width=640, height=480, with_depth=True)
+    ext = orb.OrbExtractor(ExtractorConfig(n_features=1000, n_levels=8), 480, 640,
+                           device=cuda)
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0, width=640, height=480)
+    fuse_args, tri_args = chip_smoke.mapping_case(cuda, cam, ext, frames, poses)
+    Xk, gk, ik = triangulate.triangulate(*tri_args)
+    Xp, gp, ip = triangulate.triangulate_plain(*tri_args)
+    assert torch.equal(ik, ip)
+    assert gp.sum() > 50 and (gk != gp).sum() <= max(2, 0.01 * gp.sum())
+    both = gk & gp
+    assert (Xk - Xp)[both].abs().max().item() <= 1e-4
+    for a, b in zip(fuse_match.fuse_match(*fuse_args),
+                    fuse_match.fuse_match_plain(*fuse_args)):
+        assert torch.equal(a, b)
+
+
+def test_cascade_and_mapping_kernels_refuse(cuda):
+    """Kernels O, Q, R, S and T raise on what they do not take, shapes
+    beyond their limits included; nothing falls back to the plain
+    version."""
+    from orbslam2_tpu_torch.kernels import (cascade_pack, claim_resolve, fuse_match,
+                                            project_gate, triangulate)
+
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0)
+    P = 64
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=cuda)  # noqa: E731
+    T = torch.eye(4, device=cuda)
+    b = torch.ones(P, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="n_levels"):
+        project_gate.project_gate(cam, T, z(P, 3), b, z(P, 3), z(P), z(P), 15.0, 1.2, 33)
+    with pytest.raises(ValueError, match="mp_valid"):
+        project_gate.project_gate(cam, T, z(P, 3), z(P), z(P, 3), z(P), z(P), 15.0, 1.2, 8)
+    i = z(P, dt=torch.int32)
+    with pytest.raises(ValueError, match="best"):
+        claim_resolve.claim_resolve(i, i.long(), i, i, b, z(16, 2), z(16, dt=torch.int32),
+                                    z(16), 1.2, 100, 0.9)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    kv = torch.ones(32769, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="N <= 32768"):
+        cascade_pack.cascade_pack(T, n, b, i, T, n, b, i, n, b, kv, z(32769), 3.5)
+    D, N = 2, 4097
+    with pytest.raises(ValueError, match="N <= 4096"):
+        fuse_match.fuse_match(z(D, P, 3), z(D, P, 32, dt=torch.uint8),
+                              torch.ones((D, P), dtype=torch.bool, device=cuda),
+                              T.expand(D, 4, 4).contiguous(), z(D, N, 2),
+                              z(D, N, 32, dt=torch.uint8), z(D, N, dt=torch.int32),
+                              torch.ones((D, N), dtype=torch.bool, device=cuda),
+                              cam, 1.2, 3.0)
+    B = 2
+    nb = torch.ones(B, dtype=torch.bool, device=cuda)
+    K = torch.from_numpy(cam.K).to(cuda)
+    with pytest.raises(ValueError, match="N <= 4096"):
+        triangulate.triangulate(
+            z(N, 32, dt=torch.uint8), z(N, 2), z(N, dt=torch.int32),
+            torch.ones(N, dtype=torch.bool, device=cuda), z(N), z(N), T,
+            z(B, N, 32, dt=torch.uint8), z(B, N, 2), z(B, N, dt=torch.int32),
+            torch.ones((B, N), dtype=torch.bool, device=cuda), z(B, N), z(B, N),
+            T.expand(B, 4, 4).contiguous(), nb, K, 0.1, 52.0, 1.2)

@@ -16,10 +16,11 @@ from orbslam2_tpu.models.camera import Camera as JCamera
 from orbslam2_tpu.ops import ba as jba
 from orbslam2_tpu.ops import orb as jorb
 from orbslam2_tpu.ops import point_attrs as jpa
-from orbslam2_tpu_torch import local_mapping as tlm
 from orbslam2_tpu_torch.models.camera import Camera as TCamera
 from orbslam2_tpu_torch.ops import ba as tba
+from orbslam2_tpu_torch.kernels import fuse_match as tfuse
 from orbslam2_tpu_torch.kernels import point_attrs as tpa
+from orbslam2_tpu_torch.kernels import triangulate as ttri
 from orbslam2_tpu_torch.utils.synthetic import render_sequence
 
 torch.set_num_threads(2)
@@ -180,7 +181,7 @@ def test_triangulation_rendered_pair():
     Xj, gj, ij = (np.asarray(a) for a in jlm._triangulate_neighbors_kernel(
         *(jnp.asarray(a) for a in args1 + args2), jnp.asarray(K),
         jnp.float32(0.1), jnp.float32(26.0), jnp.float32(1.2)))
-    Xt, gt, it = (a.numpy() for a in tlm._triangulate_neighbors(
+    Xt, gt, it = (a.numpy() for a in ttri.triangulate(
         *(_t(a) for a in args1 + args2), _t(K), 0.1, 26.0, 1.2))
     # matching is exact; the geometric gates are float32 tests that may
     # flip at their thresholds for a handful of points
@@ -210,8 +211,8 @@ def test_fuse_rendered_pair():
     rj = jlm._fuse_match_batch(
         *(jnp.asarray(a) for a in (mp_pos, mp_desc, mp_valid, Tcw, *kp)),
         JCamera.create(**CAM), jnp.float32(1.2), jnp.float32(3.0))
-    rt = tlm._fuse_match(*(_t(a) for a in (mp_pos, mp_desc, mp_valid, Tcw, *kp)),
-                         TCamera.create(**CAM), 1.2, 3.0)
+    rt = tfuse.fuse_match(*(_t(a) for a in (mp_pos, mp_desc, mp_valid, Tcw, *kp)),
+                          TCamera.create(**CAM), 1.2, 3.0)
     vj, vt = np.asarray(rj.valid), rt.valid.numpy()
     assert vj[0].sum() > 50 and vj[1].sum() > 200
     # the projection is a float32 product and may cross a radius or image

@@ -244,16 +244,25 @@ def _cascade_inputs():
     return mp, kp, T_pred
 
 
-def test_track_frame_fused_packed():
-    mp, kp, T_pred = _cascade_inputs()
-    args = [mp[k] for k in ("pos", "desc", "valid", "normal", "dmin", "dmax")] + \
-        [kp[k] for k in ("xy", "desc", "octave", "valid", "ur", "depth")]
+MP_KEYS = ("pos", "desc", "valid", "normal", "dmin", "dmax")
+KP_KEYS = ("xy", "desc", "octave", "valid", "ur")
+
+
+def _packed_pair(mp, kp, T_pred):
+    """The packed cascade result of the reference and of the port."""
+    args = [mp[k] for k in MP_KEYS] + [kp[k] for k in KP_KEYS + ("depth",)]
     pj = np.asarray(jtrack.track_frame_fused(
         JCamera.create(**CAM), jnp.asarray(T_pred), *(jnp.asarray(a) for a in args),
         jnp.float32(35.0), jnp.float32(15.0), jnp.float32(1.2), 4, 10))
     pt = ttrack.track_frame_fused(
         TCamera.create(**CAM), _t(T_pred), *(_t(a) for a in args),
         35.0, 15.0, 1.2, 4, 10).numpy()
+    return pj, pt
+
+
+def test_track_frame_fused_packed():
+    mp, kp, T_pred = _cascade_inputs()
+    pj, pt = _packed_pair(mp, kp, T_pred)
     assert pt.shape == pj.shape == (20 + 2048,)
     # pose: float32 rounding of the LM sums (1e-4 in rotation entries and
     # metres); counts and per-point codes: >= 99% equal (a match at a chi2
@@ -263,3 +272,60 @@ def test_track_frame_fused_packed():
     for i in (16, 17, 18, 19):
         assert abs(pt[i] - pj[i]) <= max(0.01 * pj[i], 1), (i, pt[i], pj[i])
     assert (pt[20:] == pj[20:]).mean() >= 0.99
+
+
+def _yawed(T, yaw):
+    c, s = np.cos(yaw), np.sin(yaw)
+    out = T.copy()
+    out[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    return out
+
+
+def test_track_frame_fused_forced_retry():
+    """A prediction 0.05 rad off in yaw: the first pass admits fewer than 10
+    inliers, so the cascade takes the retry at twice the radius (the
+    reference's lax.cond branch, decided on the device in the port), and
+    the packed result matches the reference's as in the test above."""
+    mp, kp, T_pred = _cascade_inputs()
+    T_pred = _yawed(T_pred, 0.05)
+    cam = TCamera.create(**CAM)
+    mpa = [_t(mp[k]) for k in MP_KEYS]
+    _, cl = ttrack.project_match(ttrack._KERNELS, cam, _t(T_pred), *mpa,
+                                 *(_t(kp[k]) for k in KP_KEYS), 15.0, 1.2, 4)
+    n1 = int(tpose.optimize_pose(_t(T_pred), cam, mpa[0], cl.obs, cl.sigma2,
+                                 cl.keep).n_inliers)
+    assert n1 < 10  # the first pass fails
+    pj, pt = _packed_pair(mp, kp, T_pred)
+    assert pj[16] > 50 and pj[17] > 100  # the retry recovered the motion
+    np.testing.assert_allclose(pt[:16], pj[:16], atol=1e-4)
+    for i in (16, 17, 18, 19):
+        assert abs(pt[i] - pj[i]) <= max(0.01 * pj[i], 1), (i, pt[i], pj[i])
+    assert (pt[20:] == pj[20:]).mean() >= 0.99
+
+
+def test_claims_ties_take_the_lowest_point_index():
+    """Map points 1200-1599 repeat points 0-399 (position, descriptor,
+    normal, band), so every keypoint one of them claims is claimed at the
+    same distance by two points: the lower index keeps it. The port's
+    projection, kernel C's and kernel Q's plain versions against the
+    reference's SearchByProjection (``track_against_points`` without pose
+    optimisation)."""
+    mp, kp, T_pred = _cascade_inputs()
+    mp = {k: v.copy() for k, v in mp.items()}
+    for v in mp.values():
+        v[1200:1600] = v[:400]
+    jc = JCamera.create(**CAM)
+    _, idx_j, keep_j, _ = jtrack.track_against_points(
+        jc, jnp.asarray(T_pred), *(jnp.asarray(mp[k]) for k in MP_KEYS),
+        *(jnp.asarray(kp[k]) for k in KP_KEYS), jnp.float32(15.0),
+        jnp.float32(1.2), 4, do_pose_opt=False)
+    _, cl = ttrack.project_match(
+        ttrack._KERNELS, TCamera.create(**CAM), _t(T_pred),
+        *(_t(mp[k]) for k in MP_KEYS), *(_t(kp[k]) for k in KP_KEYS),
+        15.0, 1.2, 4)
+    keep = cl.keep.numpy()
+    np.testing.assert_array_equal(keep, np.asarray(keep_j))
+    np.testing.assert_array_equal(cl.kp_of_mp.numpy(), np.asarray(idx_j))
+    # the originals keep their keypoints, no copy keeps one, and the
+    # originals matched many (so the tie was decided many times)
+    assert keep[:400].sum() > 30 and not keep[1200:1600].any()

@@ -33,9 +33,26 @@ Phases, each printing one line:
      buffer fill and the upload;
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
      over 36 rendered frames and checks it is never lost, makes >= 3
-     keyframes, keeps ATE under 0.035 m, and launched every kernel.
-Then the kernels as one JSON line (times, launches on the slice, the bound
-from this run's inputs), the card again, and as the last line
+     keyframes and keeps ATE under 0.035 m;
+  5. the stereo path: SlamSystem.track_stereo over 30 rendered KITTI-width
+     pairs (examples/settings/KITTI00-02.yaml: 1241x376, 2000 features)
+     at the reference e2e test's bounds (tracked >= frames - 1,
+     ATE < 0.045 m, share of keyframe features with u_right above 0.3, >= 3
+     keyframes) with kernels V and W on every frame; the fallback path: the
+     last stereo frame through Tracker._track_reference_keyframe with kernel
+     U and with its plain matcher, the match sets equal and the poses within
+     1e-4; the monocular path: SlamSystem.track_monocular over 50 rendered
+     TUM-width frames (examples/settings/TUM1.yaml's camera without
+     distortion, 1000 features) at the reference's bounds (>= 25 tracked,
+     ATE with scale < 0.035 m, final state OK), kernels U and X launched by
+     the initialisation. Each path's launch counts are set to 0 just before
+     it and read just after, and each path must launch the kernels PATHS
+     names; then U (N=2048 at the fallback, N=1024 windowed), V and W
+     (N=2048, 376x1241; W on the frame quantized to 8 bits, and within
+     1e-3 px on the float render) bit-exact and X (N=1024) within tolerance
+     against their plain versions on the arguments the paths gave them.
+Then the kernels as one JSON line (times, launches summed over the paths,
+the bound from this run's inputs), the card again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX.
 """
@@ -53,6 +70,24 @@ W, H = 640, 480
 FX = 520.0
 ATE_BOUND = 0.035      # the reference e2e test's RGB-D bound (m)
 N_FRAMES = 36
+# the reference e2e tests' stereo and monocular bounds
+STEREO_ATE = 0.045     # m, without scale
+STEREO_SHARE = 0.3     # keyframe features with a measured u_right
+MONO_ATE = 0.035       # m, with scale
+MONO_TRACKED = 25      # frames with a pose, of 50
+
+# the kernels (NAME) each path must launch
+FRONT = ("pyramid_level", "fast_score_nms", "orb_select", "orb_describe")
+CASCADE = ("project_gate", "hamming_top2_gated", "claim_resolve", "pose_lm",
+           "cascade_pack")
+MAPPING = ("triangulate", "fuse_match", "point_attrs", "ba_linearize",
+           "ba_solve", "ba_update_cost", "ba_accept")
+PATHS = {
+    "rgbd": FRONT + ("rgbd_depth",) + CASCADE + MAPPING,
+    "stereo": FRONT + ("stereo_match", "stereo_sad") + CASCADE + MAPPING,
+    "mono": FRONT + ("match_rot", "two_view") + CASCADE + MAPPING,
+    "fallback": ("match_rot",) + CASCADE,
+}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores; every kernel here is float32 or
 # integer work on the CUDA cores
@@ -881,6 +916,310 @@ def front_rows(dev, record, img0, depth0, feats, cam):
            n_ops=26 * pairs8 + 40 * live8)
 
 
+class Capture:
+    """Within ``with``, records the arguments of the last call of
+    ``module.fn`` (with ``when``, of the last call ``when(args, kwargs)``
+    admits); the call itself runs unchanged."""
+
+    def __init__(self, module, fn, when=None):
+        self.module, self.fn, self.when = module, fn, when
+        self.args = None
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.fn)
+
+        def wrapped(*a, **k):
+            if self.when is None or self.when(a, k):
+                self.args = (a, k)
+            return orig(*a, **k)
+
+        setattr(self.module, self.fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.fn, self.orig)
+
+
+def run_sensor(sensor, cfg, frames, poses, dev):
+    """One path: a new SlamSystem over ``frames`` through the sensor's entry
+    point, the launch counts set to 0 just before and read just after.
+    Returns (slam, counts, est, gt, seconds per frame)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.system import SlamSystem
+    from orbslam2_tpu_torch.utils import slices
+
+    slam = SlamSystem(cfg, device=dev)
+    kernels.reset_launches()
+    est, gt, times = [], [], []
+    for i, (frame, Tcw_true) in enumerate(zip(frames, poses)):
+        t1 = time.perf_counter()
+        pose = slices.track(slam, sensor, frame, i / cfg.camera.fps)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        if pose is not None:
+            est.append(np.linalg.inv(pose)[:3, 3])
+            gt.append(np.linalg.inv(Tcw_true)[:3, 3])
+    return slam, kernels.launch_counts(), est, gt, times
+
+
+def path_line(name, times, counts):
+    fps = len(times) / sum(times)
+    print(f"path {name}: {len(times)} frames, {fps:.2f} frames/s, "
+          f"{1e3 * sum(times) / len(times):.2f} ms a frame "
+          f"({1e3 * sum(times[1:]) / max(len(times) - 1, 1):.2f} after the first), "
+          f"launches {counts}")
+
+
+def stereo_path(dev):
+    """The KITTI-width stereo run (slices.config("stereo"), 30 frames):
+    tracked >= frames - 1, ATE < 0.045 m, a share of keyframe features with
+    u_right >= 0 above 0.3, >= 3 keyframes, V and W on every frame. Returns
+    (slam, counts, frames, V's and W's arguments on the last frame)."""
+    from orbslam2_tpu_torch.kernels import stereo_match, stereo_sad
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = slices.config("stereo")
+    frames, poses = slices.frames("stereo", cfg)
+    with Capture(stereo_match, "stereo_match") as cv, \
+            Capture(stereo_sad, "stereo_sad") as cw:
+        slam, counts, est, gt, times = run_sensor("stereo", cfg, frames, poses, dev)
+    m = slam.map
+    kfs = m.valid_keyframes()
+    share = float((m.kf_ur[kfs][m.kf_feat_valid[kfs]] >= 0).mean())
+    ate = ate_rmse(np.array(est), np.array(gt), with_scale=False) if len(est) > 2 else 1e9
+    path_line("stereo", times, counts)
+    print(f"stereo (KITTI 1241x376, 2000 features, 8 levels, {len(frames)} "
+          f"frames): {len(est)} tracked, {len(kfs)} keyframes, "
+          f"{len(m.valid_map_points())} points, ATE {ate:.5f} m, stereo share "
+          f"{share:.4f}")
+    check(len(est) >= len(frames) - 1, f"stereo: {len(est)} of {len(frames)} tracked")
+    check(ate < STEREO_ATE, f"stereo ATE {ate} >= {STEREO_ATE}")
+    check(share > STEREO_SHARE, f"stereo share {share} <= {STEREO_SHARE}")
+    check(len(kfs) >= 3, f"stereo: only {len(kfs)} keyframes")
+    for name in ("stereo_match", "stereo_sad"):
+        check(counts[name] == len(frames),
+              f"{name} launched {counts[name]} times in {len(frames)} frames")
+    return slam, counts, frames, cv.args, cw.args
+
+
+def mono_path(dev):
+    """The TUM-width monocular run (slices.config("monocular"), 50 frames):
+    >= 25 tracked, ATE with scale < 0.035 m, the final state OK, X launched
+    and U launched by SearchForInitialization. Returns (counts, U's and X's
+    arguments at the initialisation)."""
+    from orbslam2_tpu_torch import tracking
+    from orbslam2_tpu_torch.kernels import match_rot, two_view
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = slices.config("monocular")
+    frames, poses = slices.frames("monocular", cfg)
+    windowed = lambda a, k: k.get("window") is not None  # noqa: E731
+    with Capture(match_rot, "match_rot", windowed) as cu, \
+            Capture(two_view, "two_view") as cx:
+        slam, counts, est, gt, times = run_sensor("monocular", cfg, frames, poses, dev)
+    ate = ate_rmse(np.array(est), np.array(gt), with_scale=True) if len(est) > 2 else 1e9
+    first = slam.tracker.trajectory[0][0] if slam.tracker.trajectory else -1
+    path_line("mono", times, counts)
+    print(f"mono (TUM 640x480, 1000 features, 8 levels, {len(frames)} frames): "
+          f"{len(est)} tracked (initialised at frame {first}), "
+          f"{len(slam.map.valid_keyframes())} keyframes, "
+          f"{len(slam.map.valid_map_points())} points, ATE (with scale) {ate:.5f} m")
+    check(len(est) >= MONO_TRACKED, f"mono: {len(est)} tracked < {MONO_TRACKED}")
+    check(ate < MONO_ATE, f"mono ATE {ate} >= {MONO_ATE}")
+    check(slam.tracking_state == tracking.TrackingState.OK, "mono: final state not OK")
+    check(counts["two_view"] > 0 and counts["match_rot"] > 0,
+          f"mono: X {counts['two_view']}, U {counts['match_rot']} launches")
+    return counts, cu.args, cx.args
+
+
+def fallback_path(dev, slam, pair):
+    """One frame of the stereo run (``pair``) through
+    Tracker._track_reference_keyframe twice, with kernel U and with its
+    plain version: the match sets equal and the poses within 1e-4. Returns
+    (counts of the kernel run, U's arguments, ms of the kernel call)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import match_rot
+
+    tr = slam.tracker
+    out = {}
+    for key, fn in (("kernel", match_rot.match_rot),
+                    ("plain", match_rot.match_rot_plain)):
+        frame = tr._make_frame(pair[0], 0.0, None, pair[1])
+        torch.cuda.synchronize()
+        rec = {}
+
+        def recorder(*a, fn=fn, rec=rec, **k):
+            rec["args"] = (a, k)
+            rec["res"] = r = fn(*a, **k)
+            return r
+
+        kernel = match_rot.match_rot
+        match_rot.match_rot = recorder
+        try:
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            ok = tr._track_reference_keyframe(frame)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+            out[key] = (ok, frame.Tcw, rec, kernels.launch_counts(), ms)
+        finally:
+            match_rot.match_rot = kernel
+    (ok_k, T_k, rec_k, counts, ms_k), (ok_p, T_p, rec_p, _, ms_p) = out["kernel"], out["plain"]
+    same = all(torch.equal(a, b) for a, b in zip(rec_k["res"], rec_p["res"]))
+    check(ok_k and ok_p, f"fallback: tracked {ok_k} (U) / {ok_p} (plain)")
+    check(same, "fallback: U's match set differs from the plain matcher's")
+    err = float(np.abs(T_k - T_p).max())
+    check(err <= 1e-4, f"fallback: poses differ by {err}")
+    print(f"fallback (stereo frame, reference keyframe {tr.ref_kf}): "
+          f"{int(rec_k['res'].valid.sum())} matches, equal sets; pose max diff "
+          f"{err:.2e}; {ms_k:.2f} ms with U vs {ms_p:.2f} ms with the plain matcher")
+    path_line("fallback", [ms_k / 1e3], counts)
+    return counts, rec_k["args"], ms_k
+
+
+def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
+    """Kernels U, V, W and X against their plain versions on the arguments
+    the paths gave them: U at the fallback's N=2048 (and the monocular
+    initialisation's windowed N=1024), V and W on the last stereo frame
+    (N=2048, 376x1241), X at the monocular initialisation (N=1024)."""
+    from orbslam2_tpu_torch.kernels import (match_rot, stereo_match, stereo_sad,
+                                            two_view)
+    from orbslam2_tpu_torch.ops import initializer
+
+    # U: idx, dist and valid bit-exact, both call sites
+    for args in (u_args, uw_args):
+        rk = match_rot.match_rot(*args[0], **args[1])
+        rp = match_rot.match_rot_plain(*args[0], **args[1])
+        check(all(torch.equal(a, b) for a, b in zip(rk, rp)),
+              f"kernel U differs (window {args[1].get('window')})")
+    a, kw = u_args
+    desc_a, desc_b, valid_a, valid_b = a[:4]
+    na, nb = int(valid_a.sum()), int(valid_b.sum())
+    n_u = int(match_rot.match_rot(*a, **kw).valid.sum())
+    n_uw = int(match_rot.match_rot(*uw_args[0], **uw_args[1]).valid.sum())
+    record(match_rot, 0.0, lambda: match_rot.match_rot(*a, **kw),
+           cuda_ms(lambda: match_rot.match_rot_plain(*a, **kw)),
+           f"fallback Na={desc_a.shape[0]} Nb={desc_b.shape[0]} ({na} x {nb} "
+           f"valid): {n_u} matches; SearchForInitialization N="
+           f"{uw_args[0][0].shape[0]} (100 px window): {n_uw} matches; both "
+           f"bit-exact (timed at the fallback)",
+           # descriptors, validity and angles read once, idx, dist, valid
+           # written; per valid pair 8 xor + 8 popc + 7 adds, the top-2 and
+           # the column atomic (~29 ops); per row the gates and the bin (~20)
+           n_bytes=nbytes(*a[:6]) + 9 * desc_a.shape[0],
+           n_ops=29 * na * nb + 20 * desc_a.shape[0], per_call=2)
+
+    # V: u_right and depth bit-exact
+    va, vkw = v_args
+    vk = stereo_match.stereo_match(*va, **vkw)
+    vp = stereo_match.stereo_match_plain(*va, **vkw)
+    check(all(torch.equal(x, y) for x, y in zip(vk, vp)), "kernel V not bit-exact")
+    l_xy, l_oct, _, l_valid, r_xy, r_oct, _, r_valid, sf, bf, min_depth = va
+    row_ok = (l_xy[:, None, 1] - r_xy[None, :, 1]).abs() <= 2.0 * sf[l_oct.long()][:, None]
+    disp = l_xy[:, None, 0] - r_xy[None, :, 0]
+    d_ok = (disp > 0.1) & (disp <= bf / max(min_depth, 1e-6))
+    o_ok = ((r_oct[None, :] - l_oct[:, None]).abs() <= 1)
+    live = l_valid[:, None] & r_valid[None, :]
+    n_pairs = int((row_ok & d_ok & o_ok & live).sum())
+    n_live = int(live.sum())
+    record(stereo_match, 0.0, lambda: stereo_match.stereo_match(*va, **vkw),
+           cuda_ms(lambda: stereo_match.stereo_match_plain(*va, **vkw)),
+           f"N={l_xy.shape[0]}: {n_live} live pairs, {n_pairs} in the row, "
+           f"disparity and octave band, {int((vk[1] > 0).sum())} matched; "
+           f"u_right and depth bit-exact",
+           # both frames' features read once, u_right and depth written; per
+           # live pair the three gates (~10 ops), per admitted pair the
+           # distance and the top-2 (~27)
+           n_bytes=nbytes(*(t for t in va if torch.is_tensor(t))) + 8 * l_xy.shape[0],
+           n_ops=10 * n_live + 27 * n_pairs)
+
+    # W: u_right and depth bit-exact on the frame's images quantized to 8
+    # bits, as a camera delivers them (integer SADs); on the run's float
+    # renders the SADs round in another order: >= 99% of the matches within
+    # 1e-3 px
+    wa, wkw = w_args
+    wf = (stereo_sad.stereo_sad(*wa, **wkw), stereo_sad.stereo_sad_plain(*wa, **wkw))
+    near = ((wf[0][0] - wf[1][0]).abs() <= 1e-3)[(wf[1][1] > 0) | (wf[0][1] > 0)]
+    near = float(near.float().mean()) if near.numel() else 1.0
+    check(near >= 0.99, f"kernel W on float images: {near} of matches within 1e-3 px")
+    wa = tuple(torch.clamp(torch.round(im), 0, 255) for im in wa[:2]) + tuple(wa[2:])
+    wk = stereo_sad.stereo_sad(*wa, **wkw)
+    wp = stereo_sad.stereo_sad_plain(*wa, **wkw)
+    check(all(torch.equal(x, y) for x, y in zip(wk, wp)), "kernel W not bit-exact")
+    left, right, xy_l, ur0, depth0, _ = wa
+    Hh, Ww = left.shape
+    m = depth0 > 0
+    off = torch.arange(-5, 6, device=dev)
+    strip = torch.arange(-10, 11, device=dev)
+    rows = (torch.round(xy_l[m, 1]).long()[:, None] + off).clamp(0, Hh - 1)
+    lc = (torch.round(xy_l[m, 0]).long()[:, None] + off).clamp(0, Ww - 1)
+    rc = (torch.round(ur0[m]).long()[:, None] + strip).clamp(0, Ww - 1)
+    px_l = int(torch.unique(rows[:, :, None] * Ww + lc[:, None, :]).numel())
+    px_r = int(torch.unique(rows[:, :, None] * Ww + rc[:, None, :]).numel())
+    n_m = int(m.sum())
+    record(stereo_sad, 0.0, lambda: stereo_sad.stereo_sad(*wa, **wkw),
+           cuda_ms(lambda: stereo_sad.stereo_sad_plain(*wa, **wkw)),
+           f"{Hh}x{Ww}, {n_m} matches refined ({int((wk[1] > 0).sum())} kept); "
+           f"u_right and depth bit-exact on 8-bit images, {100 * near:.2f}% "
+           f"within 1e-3 px on the run's float renders",
+           # the distinct pixels of the left patches and right strips read
+           # once, the keypoints' xy, u_right and depth read, u_right and
+           # depth written; per match 11 shifts x 121 (sub, abs, add)
+           n_bytes=4 * (px_l + px_r) + xy_l.shape[0] * (8 + 4 + 4 + 8),
+           n_ops=n_m * 11 * 121 * 3)
+
+    # X: success and used_homography equal, T21 1e-4, good >= 99% of rows,
+    # points good in both within 1e-3 relative
+    xa, xkw = x_args
+    x1, x2, valid, K, samples = xa
+    N = x1.shape[0]
+    rk = two_view.unpack(two_view.two_view(*xa, **xkw).cpu().numpy(), N)
+    rp = two_view.unpack(two_view.two_view_plain(*xa, **xkw).cpu().numpy(), N)
+    t_err = float(np.abs(rk.T21 - rp.T21).max())
+    g_agree = float((rk.good == rp.good).mean())
+    both = rk.good & rp.good
+    p_err = float((np.linalg.norm(rk.points3d[both] - rp.points3d[both], axis=1)
+                   / np.linalg.norm(rp.points3d[both], axis=1)).max()) if both.any() else 0.0
+    check(rk.success == rp.success and rk.used_homography == rp.used_homography,
+          f"kernel X: success {rk.success}/{rp.success}, H {rk.used_homography}/"
+          f"{rp.used_homography}")
+    check(t_err <= 1e-4 and g_agree >= 0.99 and p_err <= 1e-3,
+          f"kernel X: T21 {t_err}, good agree {g_agree}, points {p_err}")
+    n_valid = int(valid.sum())
+    # the library yardstick: torch.linalg.eigh of the 400 hypotheses'
+    # 9x9 normal matrices (timed only; the port never calls it)
+    x1n, _ = initializer.normalize_points(x1, valid)
+    x2n, _ = initializer.normalize_points(x2, valid)
+    p1, p2 = x1n[samples.long()], x2n[samples.long()]
+    u1, v1, u2, v2 = p1[..., 0], p1[..., 1], p2[..., 0], p2[..., 1]
+    z, o = torch.zeros_like(u1), torch.ones_like(u1)
+    A_h = torch.cat([torch.stack([z, z, z, -u1, -v1, -o, v2 * u1, v2 * v1, v2], -1),
+                     torch.stack([u1, v1, o, z, z, z, -u2 * u1, -u2 * v1, -u2], -1)], 1)
+    A_f = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, o], -1)
+    AtA = torch.cat([A_h.transpose(1, 2) @ A_h, A_f.transpose(1, 2) @ A_f])
+    lib_x = cuda_ms(lambda: torch.linalg.eigh(AtA))
+    record(two_view, t_err, lambda: two_view.two_view(*xa, **xkw),
+           cuda_ms(lambda: two_view.two_view_plain(*xa, **xkw), reps=5),
+           f"N={N} ({n_valid} matches), success {rk.success}, homography "
+           f"{rk.used_homography}; T21 max diff {t_err:.2e}, good agree "
+           f"{g_agree:.4f}, points rel {p_err:.2e}; library: torch.linalg.eigh "
+           f"of the 400 normal matrices",
+           # the correspondences and samples read once, the packed result
+           # written; per hypothesis its normal matrix (16 rows x 45 x 2) and
+           # a 9x9 symmetric eigen-decomposition (~9 n^3), per hypothesis and
+           # valid correspondence both transfer errors (~40 ops); the refit's
+           # 2 x 45 x 2 per inlier and two more eigen-solves; per candidate
+           # and correspondence the DLT and the gates (~600), and the sort
+           # of N parallaxes (N log2(N)^2 / 2 compare-exchanges)
+           n_bytes=nbytes(x1, x2, valid, samples) + 4 * (18 + 4 * N),
+           n_ops=400 * (16 * 45 * 2 + 9 * 9 ** 3) + 400 * n_valid * 40
+           + n_valid * 180 + 2 * 9 * 9 ** 3 + 8 * N * 600
+           + 8 * N * int(np.log2(N)) ** 2 // 2,
+           library_ms=lib_x, per_call=4)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -889,15 +1228,15 @@ def main():
     # the port first: run outside a checkout, the script fails here before
     # printing anything
     from orbslam2_tpu_torch import kernels
-    from orbslam2_tpu_torch.config import CameraConfig, ExtractorConfig, SlamConfig
+    from orbslam2_tpu_torch.config import ExtractorConfig
     from orbslam2_tpu_torch.kernels import (build, describe, fast_score, hamming,
                                             orb_select, pose_lm)
     from orbslam2_tpu_torch.models.camera import Camera
     from orbslam2_tpu_torch.ops import image as img_ops
     from orbslam2_tpu_torch.ops import orb
-    from orbslam2_tpu_torch.system import SlamSystem
     from orbslam2_tpu_torch.kernels.project_gate import project_gate_plain
     from orbslam2_tpu_torch.tracking import TrackingState
+    from orbslam2_tpu_torch.utils import slices
     from orbslam2_tpu_torch.utils.evaluation import ate_rmse
     from orbslam2_tpu_torch.utils.synthetic import render_sequence
 
@@ -1105,40 +1444,41 @@ def main():
     print(f"hot path: {len(imgs) / t_hot:.2f} frames/s (extraction + fused "
           f"cascade, 640x480, N={N}, P={P})")
 
-    # ---- phase 4: the slice ------------------------------------------------
-    cfg = SlamConfig(
-        sensor="rgbd",
-        camera=CameraConfig(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W,
-                            height=H, bf=52.0, fps=30),
-        extractor=ExtractorConfig(n_features=1000, n_levels=8),
-    )
-    slam = SlamSystem(cfg, device=dev)
-    kernels.reset_launches()
-    est, gt, times = [], [], []
-    for i, ((img, depth), Tcw_true) in enumerate(zip(frames, poses)):
-        t1 = time.perf_counter()
-        pose = slam.track_rgbd(img, depth, i / 30.0)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        check(pose is not None, f"frame {i}: tracking lost")
-        est.append(np.linalg.inv(pose)[:3, 3])
-        gt.append(np.linalg.inv(Tcw_true)[:3, 3])
-    counts = kernels.launch_counts()
+    # ---- phase 4: the RGB-D slice -------------------------------------------
+    slam, counts, est, gt, times = run_sensor("rgbd", slices.config("rgbd"), frames,
+                                              poses, dev)
     n_kf = len(slam.map.valid_keyframes())
     ate = ate_rmse(np.array(est), np.array(gt), with_scale=False)
-    fps_all = len(times) / sum(times)
-    fps_steady = (len(times) - 1) / sum(times[1:])
-    print(f"slice: {len(times)} frames, never lost, {n_kf} keyframes, "
-          f"{len(slam.map.valid_map_points())} points, ATE {ate:.5f} m, "
-          f"{fps_all:.2f} frames/s ({fps_steady:.2f} after the first frame), "
-          f"launches {counts}")
-    check(slam.tracking_state == TrackingState.OK, "final state not OK")
-    check(n_kf >= 3, f"only {n_kf} keyframes")
-    check(ate < ATE_BOUND, f"ATE {ate} >= {ATE_BOUND}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    path_line("rgbd", times, counts)
+    print(f"rgbd (640x480, 1000 features, 8 levels, {len(frames)} frames): "
+          f"{len(est)} tracked, {n_kf} keyframes, "
+          f"{len(slam.map.valid_map_points())} points, ATE {ate:.5f} m")
+    check(len(est) == len(frames), "rgbd: tracking lost")
+    check(slam.tracking_state == TrackingState.OK, "rgbd: final state not OK")
+    check(n_kf >= 3, f"rgbd: only {n_kf} keyframes")
+    check(ate < ATE_BOUND, f"rgbd ATE {ate} >= {ATE_BOUND}")
+    path_counts = {"rgbd": counts}
+
+    # ---- phase 5: the stereo, fallback and monocular paths -----------------
+    slam_s, path_counts["stereo"], pairs, v_args, w_args = stereo_path(dev)
+    path_counts["fallback"], u_args, _ = fallback_path(dev, slam_s, pairs[-1])
+    path_counts["mono"], uw_args, x_args = mono_path(dev)
+    for path, names in PATHS.items():
+        for name in names:
+            check(path_counts[path][name] > 0,
+                  f"kernel {name} never launched on the {path} path")
+    n_retries = len(profile_retries)
+    port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args)
+    print(f"device times of U, V, W, X: profiles that missed launches "
+          f"(kernel, events, launches): {profile_retries[n_retries:] or 'none'}")
+    total = {mod.NAME: sum(c[mod.NAME] for c in path_counts.values())
+             for mod in kernels.KERNELS}
+    for name, n in total.items():
+        check(n > 0, f"kernel {name} launched on no path")
+    check(sorted(r["name"] for r in rows) == sorted(total),
+          "the kernels line does not hold every kernel once")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = total[row["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -22,6 +22,10 @@ time it launches the CUDA kernel:
   cascade_pack    R  pass choice, census, packed codes (tracking.py)
   triangulate     S  epipolar match + DLT + gates     (local_mapping.py)
   fuse_match      T  fuse projection search           (local_mapping.py)
+  match_rot       U  mutual, rotation-checked matcher (tracking.py)
+  stereo_match    V  stereo row-band descriptor match (ops/stereo.py)
+  stereo_sad      W  stereo 11x11 SAD subpixel        (ops/stereo.py)
+  two_view        X  two-view H/F initializer         (ops/initializer.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
@@ -29,13 +33,15 @@ launches the kernel (built by ``build.library()`` at first use) or raises.
 
 from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost,
                cascade_pack, claim_resolve, describe, fast_score, fuse_match,
-               hamming, orb_select, point_attrs, pose_lm, project_gate,
-               pyramid, rgbd_depth, triangulate)
+               hamming, match_rot, orb_select, point_attrs, pose_lm,
+               project_gate, pyramid, rgbd_depth, stereo_match, stereo_sad,
+               triangulate, two_view)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
            point_attrs, project_gate, claim_resolve, cascade_pack,
-           triangulate, fuse_match)
+           triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
+           two_view)
 
 
 def reset_launches():

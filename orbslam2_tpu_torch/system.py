@@ -2,10 +2,11 @@
 synchronous path).
 
 Construction wires the map, the tracker and the local mapper onto one
-``device``; ``track_rgbd`` tracks a frame and then runs local mapping on
-every keyframe it created, in order. Trajectories export in the TUM and
-KITTI formats. Loop closing (ROADMAP queue 1, slice 8), map persistence
-and relocalization (slice 7) are not in this slice.
+``device``; ``track_rgbd``, ``track_stereo`` and ``track_monocular`` track
+a frame and then run local mapping on every keyframe it created, in order.
+Trajectories export in the TUM and KITTI formats. Loop closing (ROADMAP
+queue 1, slice 8), map persistence and relocalization (slice 7) are not in
+this slice.
 """
 
 from __future__ import annotations

@@ -1,20 +1,27 @@
 """Tracking: per-frame pose estimation state machine (port of
-``orbslam2_tpu.tracking``, synchronous RGB-D path).
+``orbslam2_tpu.tracking``, synchronous path: RGB-D, stereo, monocular).
 
 The same FSM as the reference (NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST),
 motion-model + local-map tracking and the keyframe decision. Per frame:
 
-  extract (ops.orb: kernels I, A, J, B) -> depth sampling and undistortion
-  (kernel L) -> fused cascade: up to four passes of projection and frustum
-  gates (kernel O) / gated Hamming top-2 (kernel C) / match gates and claim
-  resolution (kernel Q) / motion-only LM (kernel D), the retry decided on
-  the device, then the packed result (kernel R) -> one copy to the host.
+  extract (ops.orb: kernels I, A, J, B) -> RGB-D: depth sampling and
+  undistortion (kernel L); stereo: the right image's extraction, the
+  row-band match (kernel V) and the SAD subpixel refinement (kernel W) ->
+  fused cascade: up to four passes of projection and frustum gates (kernel
+  O) / gated Hamming top-2 (kernel C) / match gates and claim resolution
+  (kernel Q) / motion-only LM (kernel D), the retry decided on the device,
+  then the packed result (kernel R) -> one copy to the host.
+
+Monocular initialisation matches the frame against the reference frame by
+SearchForInitialization (kernel U) and bootstraps the map from the
+two-view initializer (kernel X); the reference-keyframe fallback matches
+by kernel U too.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-queue-1 slice): monocular and stereo initialisation (slice 6),
-relocalization against a keyframe database and localization mode (slice 7),
-pipelined tracking (slice 9). Without a keyframe database a LOST tracker
-stays lost, as the reference's does with ``kfdb=None``.
+queue-1 slice): relocalization against a keyframe database and
+localization mode (slice 7), pipelined tracking (slice 9). Without a
+keyframe database a LOST tracker stays lost, as the reference's does with
+``kfdb=None``.
 """
 
 from __future__ import annotations
@@ -32,12 +39,15 @@ from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .kernels import cascade_pack as _cascade_pack
 from .kernels import claim_resolve as _claim_resolve
 from .kernels import hamming as _hamming
+from .kernels import match_rot as _match_rot
 from .kernels import pose_lm as _pose_lm
 from .kernels import project_gate as _project_gate
 from .kernels import rgbd_depth as _rgbd_depth
+from .kernels import two_view as _two_view
 from .map.state import MapState
 from .models.camera import Camera, undistort_points
-from .ops import matching, orb, pose_opt
+from .ops import matching, orb, pose_opt, stereo
+from .ops.initializer import N_ITERS
 
 
 class TrackingState(enum.Enum):
@@ -148,6 +158,16 @@ def track_frame_fused(
                           kp_valid, kp_depth, th_depth)
 
 
+def match_frames_windowed(desc_a, xy_a, angle_a, valid_a, desc_b, xy_b,
+                          angle_b, valid_b, window: float, nn_ratio: float = 0.9
+                          ) -> matching.MatchResult:
+    """SearchForInitialization: windowed + ratio + rotation-checked mutual
+    match (kernel U)."""
+    return _match_rot.match_rot(desc_a, desc_b, valid_a, valid_b, angle_a,
+                                angle_b, matching.TH_LOW, nn_ratio, xy_a=xy_a,
+                                xy_b=xy_b, window=window)
+
+
 # ---------------------------------------------------------------------------
 # Tracker
 # ---------------------------------------------------------------------------
@@ -183,8 +203,14 @@ class Tracker:
         self.metrics: List[dict] = []
         self.reset_requested = False
         self.pending_keyframes: List[int] = []
+        self.init_ref: Optional[FrameData] = None  # monocular init reference
+        self._rng = np.random.default_rng(cfg.runtime.seed)
         self._neg_ones: Optional[torch.Tensor] = None
         self._local_cache_key = None
+        # per-octave scale of the stereo row gate, as the reference's
+        # float32 array of the config's float64 powers
+        self._scale_factors = torch.from_numpy(np.asarray(
+            cfg.extractor.scale_factors, np.float32)).to(self.device)
 
     def _f32(self, v) -> float:
         return float(np.float32(v))
@@ -194,8 +220,8 @@ class Tracker:
                     depth_map: Optional[np.ndarray] = None,
                     right_img: Optional[np.ndarray] = None) -> FrameData:
         if right_img is not None:
-            raise NotImplementedError(
-                "stereo matching comes with ROADMAP queue 1, slice 6")
+            # the level-0 images stay on the device for kernel W
+            img = torch.as_tensor(np.asarray(img)).to(self.device, torch.float32)
         feats = self.extractor(img)
         n = feats.xy.shape[0]
         if self._neg_ones is None or self._neg_ones.shape[0] != n:
@@ -207,7 +233,18 @@ class Tracker:
         )
         if depth_map is None and self.cam.has_distortion:
             dev["xy"] = undistort_points(self.cam, feats.xy)
-        if depth_map is not None:
+        if right_img is not None:
+            # stereo: the right image's features, matched along epipolar
+            # rows (kernel V) and refined to subpixel (kernel W)
+            right = torch.as_tensor(np.asarray(right_img)).to(self.device,
+                                                              torch.float32)
+            feats_r = self.extractor(right)
+            ur0, depth0 = stereo.stereo_match(
+                feats, feats_r, self.cam.bf, self._f32(self._baseline),
+                self._scale_factors)
+            dev["ur"], dev["depth"] = stereo.subpixel_refine(
+                img, right, feats.xy, ur0, depth0, self.cam.bf)
+        elif depth_map is not None:
             # millimetre quantization and stride subsampling as the reference
             # uploads the depth map, so both packages read the same depths
             d = np.asarray(depth_map, np.float32)
@@ -296,9 +333,77 @@ class Tracker:
     # Initialization
     # ------------------------------------------------------------------
     def _initialize_monocular(self, frame: FrameData) -> bool:
-        raise NotImplementedError(
-            "monocular two-view initialization comes with ROADMAP queue 1, "
-            "slice 6")
+        """Two-view initialization against the reference frame
+        (Tracking::MonocularInitialization): SearchForInitialization
+        (kernel U), minimal sets drawn on the host, the initializer
+        (kernel X, one copy of its packed result), then the median-depth
+        normalisation and the two keyframes (CreateInitialMapMonocular)."""
+        if self.init_ref is None or self.init_ref.valid.sum() < 100:
+            self.init_ref = frame
+            return False
+        ref = self.init_ref
+        res = match_frames_windowed(
+            ref.dev["desc"], ref.dev["xy"], ref.dev["angle"], ref.dev["valid"],
+            frame.dev["desc"], frame.dev["xy"], frame.dev["angle"],
+            frame.dev["valid"], 100.0, nn_ratio=0.9)
+        m_valid = res.valid.cpu().numpy()
+        m_idx = res.idx.cpu().numpy()
+        if m_valid.sum() < 100:
+            self.init_ref = frame  # reference too stale, restart
+            return False
+
+        x1 = ref.xy
+        x2 = np.where(m_valid[:, None], frame.xy[np.maximum(m_idx, 0)], 0.0)
+        vidx = np.where(m_valid)[0]
+        # distinct correspondences per minimal set, in the reference's draw
+        order = np.argsort(self._rng.random((N_ITERS, len(vidx))), axis=1)[:, :8]
+        samples = vidx[order].astype(np.int32)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        packed = _two_view.two_view(
+            t(x1.astype(np.float32)), t(x2.astype(np.float32)), t(m_valid),
+            self.cam.K, t(samples))
+        init = _two_view.unpack(packed.cpu().numpy(), len(m_valid))
+        if not init.success:
+            return False
+        good = init.good
+        pts3d = init.points3d.copy()
+        T21 = init.T21.copy()
+
+        # normalize scale: median depth -> 1 (CreateInitialMapMonocular)
+        med_depth = float(np.median(pts3d[good][:, 2]))
+        if med_depth <= 0:
+            return False
+        pts3d = pts3d / med_depth
+        T21[:3, 3] /= med_depth
+
+        m = self.map
+        kf0 = m.add_keyframe(
+            np.eye(4, dtype=np.float32), ref.xy, ref.desc, ref.octave, ref.angle,
+            ref.valid, ref.frame_id, ref.timestamp, ur=ref.ur, depth=ref.depth)
+        kf1 = m.add_keyframe(
+            T21.astype(np.float32), frame.xy, frame.desc, frame.octave,
+            frame.angle, frame.valid, frame.frame_id, frame.timestamp,
+            ur=frame.ur, depth=frame.depth)
+        new_mps = []
+        for i in np.where(good)[0]:
+            mp = m.add_map_point(pts3d[i], kf0)
+            m.add_observation(mp, kf0, int(i))
+            m.add_observation(mp, kf1, int(m_idx[i]))
+            frame.mp[m_idx[i]] = mp
+            new_mps.append(mp)
+        m.update_point_attributes(np.asarray(new_mps))
+        m.update_connections(kf1)
+        m.update_connections(kf0)
+
+        frame.Tcw = T21
+        self.ref_kf = kf1
+        self.last_kf_frame_id = frame.frame_id
+        self.init_ref = None
+        self.n_inliers_last = len(new_mps)
+        return True
 
     def _initialize_rgbd(self, frame: FrameData) -> bool:
         """RGB-D init: spawn map points for all features with depth
@@ -464,14 +569,11 @@ class Tracker:
             return False
         dev = self.device
         has = m.kf_feat_valid[cand] & (m.kf_mp[cand] >= 0)
-        res = matching.match_descriptors(
+        res = _match_rot.match_rot(
             frame.dev["desc"], torch.from_numpy(m.kf_desc[cand]).to(dev),
             frame.dev["valid"], torch.from_numpy(has).to(dev),
-            max_dist=matching.TH_LOW, nn_ratio=0.7, mutual=True,
-            angles_a=frame.dev["angle"],
-            angles_b=torch.from_numpy(m.kf_angle[cand]).to(dev),
-            check_rotation=True,
-        )
+            frame.dev["angle"], torch.from_numpy(m.kf_angle[cand]).to(dev),
+            matching.TH_LOW, 0.7)
         rv = res.valid.cpu().numpy()
         fidx = np.where(rv)[0]
         kidx = res.idx.cpu().numpy()[fidx]

@@ -1,10 +1,12 @@
-"""Where the time goes in the RGB-D slice on one GPU.
+"""Where the time goes in a slice on one GPU.
 
-    python -m orbslam2_tpu_torch.utils.profile_slice [--frames 36] [--reps 2]
+    python -m orbslam2_tpu_torch.utils.profile_slice [--sensor rgbd]
+        [--frames 36] [--reps 2]
 
-Runs ``SlamSystem`` (RGB-D, 640x480, 1000 features, 8 levels: the
-configuration ``chip_smoke.py`` drives) over rendered frames in one
-process, ``--reps`` reps and then two profiled ones, each rep on a new
+Runs ``SlamSystem`` in the sensor's configuration of ``utils/slices.py``
+(rgbd: 640x480, 1000 features, 8 levels; stereo: KITTI 1241x376, 2000
+features; monocular: TUM 640x480, 1000 features: the configurations
+``chip_smoke.py`` drives) over its rendered frames in one process, ``--reps`` reps and then two profiled ones, each rep on a new
 system. Every rep prints its frames/s. The first ``--reps`` print host-clock
 time per stage: the tracker and local-mapper methods are wrapped so that
 each call ends in ``torch.cuda.synchronize()``, which serialises host and
@@ -27,18 +29,17 @@ import bisect
 import subprocess
 import time
 
-import numpy as np
 import torch
 
-from ..config import CameraConfig, ExtractorConfig, SlamConfig
 from ..system import SlamSystem
-from .synthetic import render_sequence
+from . import slices
 
-W, H, FX = 640, 480, 520.0
 WINDOW = (12, 24)   # profiled frames [first, last)
 
 TRACKER_STAGES = {"_make_frame": "extract+upload", "_dispatch_track": "cascade",
-                  "_create_keyframe": "create_kf"}
+                  "_create_keyframe": "create_kf",
+                  "_initialize_monocular": "mono_init",
+                  "_track_reference_keyframe": "ref_kf_fallback"}
 MAPPER_STAGES = ("_create_new_points", "_fuse_neighbors",
                  "local_bundle_adjustment", "_flush_attrs_pending",
                  "_cull_keyframes", "_refresh_tracked_points",
@@ -98,7 +99,9 @@ def stage_split(prof) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=36)
+    ap.add_argument("--sensor", choices=slices.SENSORS, default="rgbd")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="frames (default: the sensor's count in utils/slices.py)")
     ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -106,15 +109,9 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}")
-    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
-    frames, _ = render_sequence(args.frames, K, width=W, height=H,
-                                with_depth=True)
-    cfg = SlamConfig(
-        sensor="rgbd",
-        camera=CameraConfig(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W,
-                            height=H, bf=52.0, fps=30),
-        extractor=ExtractorConfig(n_features=1000, n_levels=8))
+    print(f"card: {card}; sensor {args.sensor}")
+    cfg = slices.config(args.sensor)
+    frames, _ = slices.frames(args.sensor, cfg, args.frames)
     dev = torch.device("cuda")
     split = None
     for rep in range(args.reps + 2):
@@ -131,7 +128,7 @@ def main():
                    mark=profiled)
         prof = None
         times = []
-        for i, (img, depth) in enumerate(frames):
+        for i, frame in enumerate(frames):
             if profiled and i == WINDOW[0]:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -139,7 +136,7 @@ def main():
                 prof.__enter__()
                 t_win = time.perf_counter()
             t1 = time.perf_counter()
-            slam.track_rgbd(img, depth, i / 30.0)
+            slices.track(slam, args.sensor, frame, i / 30.0)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
             if prof is not None and i == WINDOW[1] - 1:

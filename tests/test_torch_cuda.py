@@ -23,7 +23,9 @@ from orbslam2_tpu_torch.ops import ba
 from orbslam2_tpu_torch.ops import image as img_ops
 from orbslam2_tpu_torch.ops import orb
 from orbslam2_tpu_torch.utils import ba_parity
-from orbslam2_tpu_torch.utils.synthetic import ba_window, render_sequence
+from orbslam2_tpu_torch.utils.synthetic import (ba_window, make_box_room,
+                                                orbit_trajectory, render,
+                                                render_sequence)
 
 pytestmark = pytest.mark.cuda
 
@@ -218,7 +220,10 @@ def test_slice_runs_through_kernels(cuda):
     kernels.reset_launches()
     for i, (img, depth) in enumerate(frames):
         assert slam.track_rgbd(img, depth, i / 30.0) is not None
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    import chip_smoke
+
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in chip_smoke.PATHS["rgbd"])
 
 
 def _frame640(dev):
@@ -571,3 +576,217 @@ def test_cascade_and_mapping_kernels_refuse(cuda):
             z(B, N, 32, dt=torch.uint8), z(B, N, 2), z(B, N, dt=torch.int32),
             torch.ones((B, N), dtype=torch.bool, device=cuda), z(B, N), z(B, N),
             T.expand(B, 4, 4).contiguous(), nb, K, 0.1, 52.0, 1.2)
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: kernels U, V, W, X at the full-width shapes
+# ---------------------------------------------------------------------------
+
+def _sensor_features(dev, sensor, index, right=False):
+    """The features (N = max_keypoints) of rendered frame ``index`` of the
+    sensor's chip_smoke sequence (utils/slices.py), and the image on the
+    device."""
+    from orbslam2_tpu_torch.utils import slices
+
+    cfg = slices.config(sensor)
+    c = cfg.camera
+    K_ = slices.intrinsics(cfg)
+    planes = make_box_room(seed=0)
+    T = orbit_trajectory(index + 1)[index]
+    if right:
+        Trl = np.eye(4, dtype=np.float32)
+        Trl[0, 3] = -c.bf / c.fx
+        T = Trl @ T
+    img = torch.from_numpy(render(planes, K_, T, c.width, c.height)).float().to(dev)
+    ext = orb.OrbExtractor(cfg.extractor, c.height, c.width, device=dev)
+    return cfg, img, ext(img)
+
+
+def _stereo_args(dev):
+    from orbslam2_tpu_torch.kernels import stereo_match
+
+    cfg, left, fl = _sensor_features(dev, "stereo", 0)
+    _, right, fr = _sensor_features(dev, "stereo", 0, right=True)
+    sf = torch.tensor(cfg.extractor.scale_factors, dtype=torch.float32, device=dev)
+    bf = float(np.float32(cfg.camera.bf))
+    md = float(np.float32(cfg.camera.bf / cfg.camera.fx))
+    v_args = (fl.xy, fl.octave, fl.desc, fl.valid, fr.xy, fr.octave, fr.desc,
+              fr.valid, sf, bf, md)
+    ur0, d0 = stereo_match.stereo_match(*v_args)
+    return v_args, (left, right, fl.xy, ur0, d0, bf)
+
+
+def test_stereo_match_bit_exact(cuda):
+    """Kernel V at KITTI width (N = 2048): u_right and depth bit-exact."""
+    from orbslam2_tpu_torch.kernels import stereo_match
+
+    v_args, _ = _stereo_args(cuda)
+    assert v_args[0].shape[0] == 2048
+    vk = stereo_match.stereo_match(*v_args)
+    vp = stereo_match.stereo_match_plain(*v_args)
+    assert torch.equal(vk[0], vp[0]) and torch.equal(vk[1], vp[1])
+    assert (vk[1] > 0).sum() > 500
+
+
+def test_stereo_sad_bit_exact(cuda):
+    """Kernel W at KITTI width (376x1241, N = 2048): bit-exact on the images
+    quantized to 8 bits; >= 99% of matches within 1e-3 px on float renders."""
+    from orbslam2_tpu_torch.kernels import stereo_sad
+
+    _, w_args = _stereo_args(cuda)
+    wk, wp = stereo_sad.stereo_sad(*w_args), stereo_sad.stereo_sad_plain(*w_args)
+    m = (wk[1] > 0) | (wp[1] > 0)
+    assert ((wk[0] - wp[0]).abs() <= 1e-3)[m].float().mean().item() >= 0.99
+    q = tuple(torch.clamp(torch.round(im), 0, 255) for im in w_args[:2]) + w_args[2:]
+    wk, wp = stereo_sad.stereo_sad(*q), stereo_sad.stereo_sad_plain(*q)
+    assert torch.equal(wk[0], wp[0]) and torch.equal(wk[1], wp[1])
+    assert (wk[1] > 0).sum() > 500
+
+
+@pytest.mark.parametrize("site", ["fallback", "windowed"])
+def test_match_rot_bit_exact(cuda, site):
+    """Kernel U: the fallback's call at KITTI width (N = 2048, no window,
+    ratio 0.7) and SearchForInitialization at TUM width (N = 1024, 100 px,
+    ratio 0.9); idx, dist and valid bit-exact."""
+    from orbslam2_tpu_torch.kernels import match_rot
+
+    sensor, j = ("stereo", 3) if site == "fallback" else ("monocular", 10)
+    _, _, fa = _sensor_features(cuda, sensor, 0)
+    _, _, fb = _sensor_features(cuda, sensor, j)
+    args = (fa.desc, fb.desc, fa.valid, fb.valid, fa.angle, fb.angle, 50,
+            0.7 if site == "fallback" else 0.9)
+    kw = {} if site == "fallback" else dict(xy_a=fa.xy, xy_b=fb.xy, window=100.0)
+    rk = match_rot.match_rot(*args, **kw)
+    rp = match_rot.match_rot_plain(*args, **kw)
+    for a, b in zip(rk, rp):
+        assert torch.equal(a, b)
+    assert rk.valid.sum() > 100
+
+
+def _two_view_case(dev):
+    """SearchForInitialization between TUM-width frames 0 and 10 (kernel U)
+    and minimal sets drawn as the tracker draws them."""
+    from orbslam2_tpu_torch.kernels import match_rot
+    from orbslam2_tpu_torch.ops.initializer import N_ITERS
+
+    cfg, _, fa = _sensor_features(dev, "monocular", 0)
+    _, _, fb = _sensor_features(dev, "monocular", 10)
+    res = match_rot.match_rot(fa.desc, fb.desc, fa.valid, fb.valid, fa.angle,
+                              fb.angle, 50, 0.9, xy_a=fa.xy, xy_b=fb.xy, window=100.0)
+    x2 = torch.where(res.valid[:, None], fb.xy[res.idx.clamp_min(0).long()],
+                     torch.zeros_like(fb.xy))
+    vidx = np.where(res.valid.cpu().numpy())[0]
+    rng = np.random.default_rng(0)
+    samples = vidx[np.argsort(rng.random((N_ITERS, len(vidx))), axis=1)[:, :8]]
+    K_ = torch.from_numpy(np.asarray(
+        [[cfg.camera.fx, 0, cfg.camera.cx], [0, cfg.camera.fy, cfg.camera.cy],
+         [0, 0, 1]], np.float32)).to(dev)
+    return (fa.xy, x2.contiguous(), res.valid, K_,
+            torch.from_numpy(samples.astype(np.int32)).to(dev))
+
+
+def _unit(a):
+    """Rows scaled to unit norm, signed so that the largest entry is > 0."""
+    a = a.reshape(a.shape[0], -1).double()
+    a = a / a.norm(dim=1, keepdim=True)
+    return a * torch.sign(a.gather(1, a.abs().argmax(1, keepdim=True)))
+
+
+def test_two_view_launches_match_plain(cuda):
+    """Kernel X at TUM width (N = 1024), each launch against the plain
+    version's stage on the same inputs (the earlier stages' plain outputs
+    fed in): X1 the 400 models up to scale (median 1e-5) and scores 1e-4
+    relative; X2 the model choice and the candidate poses (the same set
+    within 1e-4); X3 the good counts within 1%, good flags >= 99% and points
+    1e-3 relative; X4 bit-exact. Then the whole of X against the plain
+    initializer: success and the model equal, T21 within 1e-4, good >= 99%,
+    points 1e-3 relative."""
+    from orbslam2_tpu_torch.kernels import two_view
+    from orbslam2_tpu_torch.ops import initializer as ini
+
+    args = _two_view_case(cuda)
+    x1, x2, valid, K_, samples = args
+    N = x1.shape[0]
+    hyp = ini.hypotheses(x1, x2, valid, samples)
+    cand = ini.refine(hyp, x1, x2, valid, K_)
+    chk = ini.check_hypotheses(cand, x1, x2, valid, K_)
+    res = ini.select(chk, cand, valid)
+
+    st = two_view.stages(*args, upto=1)
+    models = torch.cat([hyp.H21.reshape(-1, 9), hyp.F21.reshape(-1, 9)])
+    diff = (_unit(st.hyp) - _unit(models)).abs().max(1).values
+    assert diff.median().item() < 1e-5 and (diff < 1e-4).float().mean().item() >= 0.99
+    scores = torch.cat([hyp.h_scores, hyp.f_scores])
+    rel = (st.scores - scores).abs() / scores.abs().clamp_min(1.0)
+    assert (rel < 1e-4).float().mean().item() >= 0.99
+
+    st.hyp.copy_(models)
+    st.scores.copy_(scores)
+    two_view.stages(*args, first=2, upto=2, given=st)
+    assert bool(st.meta[0] > 0.5) == bool(cand.use_h)
+    poses_k = st.cand[:, :12]
+    poses_p = torch.cat([cand.Rs.reshape(8, 9), cand.ts], 1)
+    n_c = 8 if bool(cand.use_h) else 4
+    for row in poses_p[:n_c]:
+        assert (poses_k[:n_c] - row).abs().max(1).values.min().item() < 1e-4
+    for row in poses_k[:n_c]:
+        assert (poses_p[:n_c] - row).abs().max(1).values.min().item() < 1e-4
+
+    st.cand.copy_(poses_p)
+    st.meta[5:13] = cand.mask.float()
+    two_view.stages(*args, first=3, upto=3, given=st)
+    ng_k, ng_p = st.n_good, chk.n_good
+    assert ((ng_k - ng_p).abs() <= torch.clamp(0.01 * ng_p.abs(), min=1)).all()
+    assert (st.good == chk.good).float().mean().item() >= 0.99
+    both = st.good & chk.good
+    rel = (st.X - chk.X).norm(dim=-1) / chk.X.norm(dim=-1).clamp_min(1e-6)
+    assert rel[both].max().item() < 1e-3
+
+    st.X.copy_(chk.X)
+    st.good.copy_(chk.good)
+    st.n_good.copy_(chk.n_good)
+    st.parallax.copy_(chk.parallax)
+    st.meta[0] = float(cand.use_h)
+    two_view.stages(*args, first=4, upto=4, given=st)
+    assert torch.equal(st.out, two_view.pack(res))
+
+    rk = two_view.unpack(two_view.two_view(*args).cpu().numpy(), N)
+    rp = two_view.unpack(two_view.pack(res).cpu().numpy(), N)
+    assert rk.success == rp.success and rk.used_homography == rp.used_homography
+    assert np.abs(rk.T21 - rp.T21).max() <= 1e-4
+    assert (rk.good == rp.good).mean() >= 0.99
+    both = rk.good & rp.good
+    if both.any():
+        assert (np.linalg.norm(rk.points3d[both] - rp.points3d[both], axis=1)
+                / np.linalg.norm(rp.points3d[both], axis=1)).max() < 1e-3
+    print(f"X: success {rk.success}, homography {rk.used_homography}, "
+          f"{int(valid.sum())} matches, {int(rk.good.sum())} good")
+
+
+def test_slice6_kernels_refuse(cuda):
+    """Kernels U, V, W and X raise on what they do not take; nothing falls
+    back to the plain version."""
+    from orbslam2_tpu_torch.kernels import match_rot, stereo_match, stereo_sad, two_view
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    desc = z(8193, 32, dtype=torch.uint8)
+    ok = z(8193, dtype=torch.bool)
+    with pytest.raises(ValueError, match="Na=8193"):
+        match_rot.match_rot(desc, desc, ok, ok, z(8193), z(8193), 50, 0.7)
+    with pytest.raises(ValueError, match="angles_b"):
+        match_rot.match_rot(desc[:16], desc[:16], ok[:16], ok[:16], z(16), z(16).double(),
+                            50, 0.7)
+    with pytest.raises(ValueError, match="l_oct"):
+        stereo_match.stereo_match(z(16, 2), z(16), desc[:16], ok[:16], z(16, 2),
+                                  z(16, dtype=torch.int32), desc[:16], ok[:16], z(8),
+                                  52.0, 0.2)
+    with pytest.raises(ValueError, match="left_img"):
+        stereo_sad.stereo_sad(z(24, 32).double(), z(24, 32), z(16, 2), z(16), z(16), 52.0)
+    samples = z(200, 8, dtype=torch.int32)
+    K_ = np.eye(3, dtype=np.float32)
+    with pytest.raises(ValueError, match="N=8193"):
+        two_view.two_view(z(8193, 2), z(8193, 2), ok, K_, samples)
+    with pytest.raises(ValueError, match="samples"):
+        two_view.two_view(z(16, 2), z(16, 2), ok[:16], K_, samples[:100])

@@ -91,15 +91,16 @@ class TestRgbdPipeline:
         img = rgbd_sequence[0][0][0]
         with pytest.raises(NotImplementedError, match="slice 8"):
             SlamSystem(_cfg(), enable_loop_closing=True, device="cpu")
+        # stereo and monocular are ported (slice 6): a first frame runs
         for sensor in ("monocular", "stereo"):
             cfg = _cfg()
             cfg.sensor = sensor
             other = SlamSystem(cfg, device="cpu")
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                if sensor == "stereo":
-                    other.track_stereo(img, img, 0.0)
-                else:
-                    other.track_monocular(img, 0.0)
+            if sensor == "stereo":
+                other.track_stereo(img, img, 0.0)
+            else:
+                assert other.track_monocular(img, 0.0) is None
+            assert other.tracking_state != TrackingState.NO_IMAGES_YET
         slam = SlamSystem(_cfg(), device="cpu")
         with pytest.raises(NotImplementedError, match="slice 9"):
             slam.tracker.track_pipelined(None, 0.0)

@@ -20,6 +20,7 @@ from orbslam2_tpu.ops import orb as jorb
 from orbslam2_tpu.ops import pose_opt as jpose
 from orbslam2_tpu_torch import tracking as ttrack
 from orbslam2_tpu_torch.kernels import hamming as thamming
+from orbslam2_tpu_torch.kernels import match_rot as tmatch_rot
 from orbslam2_tpu_torch.kernels import rgbd_depth as trgbd
 from orbslam2_tpu_torch.models.camera import Camera as TCamera
 from orbslam2_tpu_torch.ops import matching as tmatch
@@ -329,3 +330,68 @@ def test_claims_ties_take_the_lowest_point_index():
     # the originals keep their keypoints, no copy keeps one, and the
     # originals matched many (so the tie was decided many times)
     assert keep[:400].sum() > 30 and not keep[1200:1600].any()
+
+
+def _match_rot_case(case, rng):
+    """Kernel U's inputs: A rows 0..159 are noisy copies of B rows 0..159
+    with angle differences spread over bins; "duplicates" repeats B rows
+    (A rows 0-79 then tie between two columns) and A rows (columns 80-119
+    tie between two rows); "equal_bins" puts 40 matches in each of bins 3, 7,
+    11 and 15, so the histogram's top 3 are decided by the lower-bin rule."""
+    na = nb = 320
+    a, b = _desc_pair(rng, na, nb, 160)
+    va = np.ones(na, bool) if case == "equal_bins" else rng.random(na) < 0.9
+    vb = np.ones(nb, bool) if case == "equal_bins" else rng.random(nb) < 0.9
+    if case == "duplicates":
+        b[160:240] = b[0:80]
+        a[240:280] = a[80:120]
+    ang_b = rng.uniform(-np.pi, np.pi, nb).astype(np.float32)
+    ang_a = rng.uniform(-np.pi, np.pi, na).astype(np.float32)
+    two_pi = 2 * np.pi
+    if case == "equal_bins":
+        bins = np.array([3, 7, 11, 15])[np.arange(160) % 4]
+    else:   # most in bin 0 (both signs of a small rotation), some in bin 20
+        bins = np.where(np.arange(160) % 5 == 0, 20, 0)
+    diff = (bins + 0.5) * two_pi / 30 + np.where(bins == 0, rng.uniform(-0.6, 0.6, 160) * two_pi / 30, 0)
+    ang_a[:160] = np.mod(ang_b[:160] + diff + np.pi, two_pi) - np.pi
+    xy_b = np.stack([rng.uniform(0, 640, nb), rng.uniform(0, 480, nb)], 1).astype(np.float32)
+    xy_a = np.stack([rng.uniform(0, 640, na), rng.uniform(0, 480, na)], 1).astype(np.float32)
+    xy_a[:160] = xy_b[:160] + rng.normal(0, 40, (160, 2)).astype(np.float32)
+    return a, b, va, vb, ang_a.astype(np.float32), ang_b, xy_a, xy_b
+
+
+@pytest.mark.parametrize("case", ["fallback", "windowed", "duplicates", "equal_bins"])
+def test_match_rot_exact(case):
+    """Kernel U's plain version against the reference's mutual, rotation-
+    checked match_descriptors (the fallback: TH_LOW, ratio 0.7) and
+    match_frames_windowed (SearchForInitialization: ratio 0.9, 100 px):
+    idx, dist and valid exact, ties and equal histogram bins included."""
+    rng = np.random.default_rng(21)
+    a, b, va, vb, ang_a, ang_b, xy_a, xy_b = _match_rot_case(case, rng)
+    if case == "windowed":
+        rj = jtrack.match_frames_windowed(
+            jnp.asarray(a), jnp.asarray(xy_a), jnp.asarray(ang_a), jnp.asarray(va),
+            jnp.asarray(b), jnp.asarray(xy_b), jnp.asarray(ang_b), jnp.asarray(vb),
+            jnp.float32(100.0), nn_ratio=0.9)
+        rt = ttrack.match_frames_windowed(_t(a), _t(xy_a), _t(ang_a), _t(va), _t(b),
+                                          _t(xy_b), _t(ang_b), _t(vb), 100.0, 0.9)
+    else:
+        rj = jmatch.match_descriptors(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb),
+            max_dist=jmatch.TH_LOW, nn_ratio=0.7, mutual=True,
+            angles_a=jnp.asarray(ang_a), angles_b=jnp.asarray(ang_b),
+            check_rotation=True)
+        rt = tmatch_rot.match_rot(_t(a), _t(b), _t(va), _t(vb), _t(ang_a), _t(ang_b),
+                                  tmatch.TH_LOW, 0.7)
+    for f in ("idx", "dist", "valid"):
+        np.testing.assert_array_equal(getattr(rt, f).numpy(), np.asarray(getattr(rj, f)))
+    valid = rt.valid.numpy()
+    assert valid.sum() > 60
+    if case == "equal_bins":   # bin 15 ties bins 3, 7, 11 and loses
+        assert not valid[3:160:4].any() and valid[0:160:4].sum() > 30
+    if case == "duplicates":
+        # rows 0-79 tie between two columns: best == second fails the ratio;
+        # columns 80-119 tie between two rows: the first row is the mutual one
+        assert not valid[:80][vb[:80] & vb[160:240]].any()
+        assert valid[80:120].sum() > 20
+        assert not valid[240:280][va[80:120]].any()

@@ -126,19 +126,33 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 profile_retries = []   # (kernel, events seen, launches) of discarded profiles
+profile_gaps = {}      # kernel: (events seen, launches) where every profile missed some
 
 
 def device_events(fn, kernel, reps=20):
     """(device ms, events) of the CUDA kernels whose name holds ``kernel``
     (every device event with ``kernel=None``) over ``reps`` calls of
-    ``fn``, from torch.profiler's device events."""
+    ``fn``, from torch.profiler's device events. For a named kernel, other
+    launches (an add of one float) come before and after the calls inside
+    the profile, so that events the profiler drops at its edges are not
+    the kernel's."""
     fn()
     torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
+
+    def margin():
+        if kernel is not None:
+            for _ in range(8):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        margin()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        margin()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and (kernel is None or kernel in e.key)]
@@ -153,7 +167,8 @@ def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
     one of the kernel's launches gives the sum over the calls; one that
     missed any is recorded in ``profile_retries`` and taken again,
     ``attempts`` times at most. If every profile missed launches, the mean
-    time of the launches the fullest one recorded, times ``per_call``."""
+    time of the launches the fullest one recorded, times ``per_call``, and
+    the kernel's (events, launches) in ``profile_gaps``."""
     best = (0.0, 0)
     for _ in range(attempts):
         total, count = device_events(fn, kernel, reps)
@@ -162,6 +177,7 @@ def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
         profile_retries.append((kernel, count, reps * per_call))
         best = max(best, (total, count), key=lambda tc: tc[1])
     check(best[1] > 0, f"{kernel}: no device event in {attempts} profiles")
+    profile_gaps[kernel] = (best[1], reps * per_call)
     return best[0] / best[1] * per_call
 
 
@@ -917,21 +933,24 @@ def front_rows(dev, record, img0, depth0, feats, cam):
 
 
 class Capture:
-    """Within ``with``, records the arguments of the last call of
-    ``module.fn`` (with ``when``, of the last call ``when(args, kwargs)``
-    admits); the call itself runs unchanged."""
+    """Within ``with``, records the arguments and the result of the last
+    call of ``module.fn`` (with ``when``, of the last call ``when(args,
+    kwargs)`` admits); the call runs unchanged, or through ``use`` in its
+    place."""
 
-    def __init__(self, module, fn, when=None):
-        self.module, self.fn, self.when = module, fn, when
-        self.args = None
+    def __init__(self, module, fn, when=None, use=None):
+        self.module, self.fn, self.when, self.use = module, fn, when, use
+        self.args = self.result = None
 
     def __enter__(self):
-        self.orig = orig = getattr(self.module, self.fn)
+        self.orig = getattr(self.module, self.fn)
+        call = self.use or self.orig
 
         def wrapped(*a, **k):
+            r = call(*a, **k)
             if self.when is None or self.when(a, k):
-                self.args = (a, k)
-            return orig(*a, **k)
+                self.args, self.result = (a, k), r
+            return r
 
         setattr(self.module, self.fn, wrapped)
         return self
@@ -1044,39 +1063,27 @@ def fallback_path(dev, slam, pair):
 
     tr = slam.tracker
     out = {}
-    for key, fn in (("kernel", match_rot.match_rot),
-                    ("plain", match_rot.match_rot_plain)):
+    for key, use in (("kernel", None), ("plain", match_rot.match_rot_plain)):
         frame = tr._make_frame(pair[0], 0.0, None, pair[1])
         torch.cuda.synchronize()
-        rec = {}
-
-        def recorder(*a, fn=fn, rec=rec, **k):
-            rec["args"] = (a, k)
-            rec["res"] = r = fn(*a, **k)
-            return r
-
-        kernel = match_rot.match_rot
-        match_rot.match_rot = recorder
-        try:
+        with Capture(match_rot, "match_rot", use=use) as cap:
             kernels.reset_launches()
             t1 = time.perf_counter()
             ok = tr._track_reference_keyframe(frame)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t1)
-            out[key] = (ok, frame.Tcw, rec, kernels.launch_counts(), ms)
-        finally:
-            match_rot.match_rot = kernel
-    (ok_k, T_k, rec_k, counts, ms_k), (ok_p, T_p, rec_p, _, ms_p) = out["kernel"], out["plain"]
-    same = all(torch.equal(a, b) for a, b in zip(rec_k["res"], rec_p["res"]))
+        out[key] = (ok, frame.Tcw, cap, kernels.launch_counts(), ms)
+    (ok_k, T_k, cap_k, counts, ms_k), (ok_p, T_p, cap_p, _, ms_p) = out["kernel"], out["plain"]
+    same = all(torch.equal(a, b) for a, b in zip(cap_k.result, cap_p.result))
     check(ok_k and ok_p, f"fallback: tracked {ok_k} (U) / {ok_p} (plain)")
     check(same, "fallback: U's match set differs from the plain matcher's")
     err = float(np.abs(T_k - T_p).max())
     check(err <= 1e-4, f"fallback: poses differ by {err}")
     print(f"fallback (stereo frame, reference keyframe {tr.ref_kf}): "
-          f"{int(rec_k['res'].valid.sum())} matches, equal sets; pose max diff "
+          f"{int(cap_k.result.valid.sum())} matches, equal sets; pose max diff "
           f"{err:.2e}; {ms_k:.2f} ms with U vs {ms_p:.2f} ms with the plain matcher")
     path_line("fallback", [ms_k / 1e3], counts)
-    return counts, rec_k["args"], ms_k
+    return counts, cap_k.args, ms_k
 
 
 def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
@@ -1187,7 +1194,27 @@ def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
           f"{rp.used_homography}")
     check(t_err <= 1e-4 and g_agree >= 0.99 and p_err <= 1e-3,
           f"kernel X: T21 {t_err}, good agree {g_agree}, points {p_err}")
+    # the work this run's data needs, from the plain stages: the winners'
+    # inliers, the candidates of the chosen model (8 for H; F's 4, which X3
+    # checks twice), the good points of each
     n_valid = int(valid.sum())
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    hyp = initializer.hypotheses(x1, x2, valid, samples)
+    n_h = int(initializer.score_homography(hyp.H21[torch.argmax(hyp.h_scores)],
+                                           x1, x2, valid)[1].sum())
+    n_f = int(initializer.score_fundamental(hyp.F21[torch.argmax(hyp.f_scores)],
+                                            x1, x2, valid)[1].sum())
+    cand = initializer.refine(hyp, x1, x2, valid, Kt)
+    chk = initializer.check_hypotheses(cand, x1, x2, valid, Kt)
+    n_cand = int(cand.mask.sum())
+    n_good = int(chk.n_good.clamp_min(0).sum())
+    # the least a 9x9 symmetric eigenvector takes: Householder
+    # tridiagonalisation (4 n^3 / 3) and O(n^2) for the eigenvalue and the
+    # vector; F's rank 2 by a 3x3 SVD (~150); the denormalisation's two
+    # 3x3 products
+    eig9 = 4 * 9 ** 3 // 3 + 6 * 9 ** 2
+    h_ops = 16 * 45 * 2 + eig9 + 2 * 27 * 2           # 16 DLT rows
+    f_ops = 8 * 45 * 2 + eig9 + 150 + 2 * 27 * 2      # 8 rows
     # the library yardstick: torch.linalg.eigh of the 400 hypotheses'
     # 9x9 normal matrices (timed only; the port never calls it)
     x1n, _ = initializer.normalize_points(x1, valid)
@@ -1204,19 +1231,24 @@ def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
            cuda_ms(lambda: two_view.two_view_plain(*xa, **xkw), reps=5),
            f"N={N} ({n_valid} matches), success {rk.success}, homography "
            f"{rk.used_homography}; T21 max diff {t_err:.2e}, good agree "
-           f"{g_agree:.4f}, points rel {p_err:.2e}; library: torch.linalg.eigh "
-           f"of the 400 normal matrices",
+           f"{g_agree:.4f}, points rel {p_err:.2e}; bound over {n_h} H and "
+           f"{n_f} F inliers, {n_cand} candidates, {n_good} good points; "
+           f"library: torch.linalg.eigh of the 400 normal matrices",
            # the correspondences and samples read once, the packed result
-           # written; per hypothesis its normal matrix (16 rows x 45 x 2) and
-           # a 9x9 symmetric eigen-decomposition (~9 n^3), per hypothesis and
-           # valid correspondence both transfer errors (~40 ops); the refit's
-           # 2 x 45 x 2 per inlier and two more eigen-solves; per candidate
-           # and correspondence the DLT and the gates (~600), and the sort
-           # of N parallaxes (N log2(N)^2 / 2 compare-exchanges)
+           # written; per H hypothesis its 16-row normal matrix (45 products,
+           # mul + add), per F one of 8 rows; per hypothesis and valid
+           # correspondence both transfer errors and the score (~40); the
+           # refits' rows over the winners' inliers (2 rows an H inlier, 1
+           # an F) and their eigen-solves; ~1000 for the decompositions; per
+           # candidate and valid correspondence the DLT (the 4x4 system,
+           # its normal matrix and eigenvector, ~285) and the cheirality,
+           # reprojection and parallax gates (~65); per good point its
+           # parallax angle and its share of an O(n) selection of the 50th
+           # smallest (~12)
            n_bytes=nbytes(x1, x2, valid, samples) + 4 * (18 + 4 * N),
-           n_ops=400 * (16 * 45 * 2 + 9 * 9 ** 3) + 400 * n_valid * 40
-           + n_valid * 180 + 2 * 9 * 9 ** 3 + 8 * N * 600
-           + 8 * N * int(np.log2(N)) ** 2 // 2,
+           n_ops=initializer.N_ITERS * (h_ops + f_ops) + 400 * n_valid * 40
+           + (2 * n_h + n_f) * 45 * 2 + 2 * eig9 + 1000
+           + n_cand * n_valid * 350 + n_good * 12,
            library_ms=lib_x, per_call=4)
 
 
@@ -1270,14 +1302,18 @@ def main():
         ms = cuda_ms(fn)
         dev_ms = device_ms(fn, mod.FUNCTION, per_call=per_call)
         bound_ms, bound_by = bound(n_bytes, n_ops)
+        seen, launched = profile_gaps.pop(mod.FUNCTION, (20 * per_call,) * 2)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
-                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
+                         ms=ms, device_ms=dev_ms,
+                         device_events=f"{seen} of {launched}",
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms))
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        part = ("" if seen == launched else
+                f", from a profile that recorded {seen} of {launched} launches")
         print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
-              f"{dev_ms:.4f} ms) vs plain {plain_ms:.4f} ms{lib}, bound "
+              f"{dev_ms:.4f} ms{part}) vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound_ms:.6f} ms ({bound_by})")
 
     # A: FAST score + NMS on the 640x480 level 0

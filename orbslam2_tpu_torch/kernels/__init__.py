@@ -24,7 +24,7 @@ time it launches the CUDA kernel:
   fuse_match      T  fuse projection search           (local_mapping.py)
   match_rot       U  mutual, rotation-checked matcher (tracking.py)
   stereo_match    V  stereo row-band descriptor match (ops/stereo.py)
-  stereo_sad      W  stereo 11x11 SAD subpixel        (ops/stereo.py)
+  stereo_sad      W  stereo 11x11 SAD subpixel        (tracking.py)
   two_view        X  two-view H/F initializer         (ops/initializer.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it

@@ -1,11 +1,12 @@
 """Stereo matching: left/right ORB correspondence along epipolar rows (port
 of ``orbslam2_tpu.ops.stereo``).
 
-Two kernels, each beside its plain version: V (``kernels/stereo_match.py``)
-matches every left keypoint against the right keypoints on nearby rows
-within the disparity band and one octave, by descriptor distance (TH_HIGH,
-ratio 0.9); W (``kernels/stereo_sad.py``) refines each match to subpixel
-by the 11x11 SAD scan and parabola fit on the level-0 images.
+Kernel V (``kernels/stereo_match.py``, beside its plain version) matches
+every left keypoint against the right keypoints on nearby rows within the
+disparity band and one octave, by descriptor distance (TH_HIGH, ratio 0.9).
+The subpixel half, the 11x11 SAD scan and parabola fit on the level-0
+images, is kernel W (``kernels/stereo_sad.py``), which the tracker calls
+directly.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from typing import Tuple
 import torch
 
 from ..kernels import stereo_match as _stereo_match
-from ..kernels import stereo_sad as _stereo_sad
 from .orb import Features
 
 
@@ -30,10 +30,3 @@ def stereo_match(left: Features, right: Features, bf: float, min_depth: float,
         left.xy, left.octave, left.desc, left.valid, right.xy, right.octave,
         right.desc, right.valid, scale_factors, bf, min_depth)
 
-
-def subpixel_refine(left_img: torch.Tensor, right_img: torch.Tensor,
-                    xy_l: torch.Tensor, ur0: torch.Tensor, depth0: torch.Tensor,
-                    bf: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Refined (u_right, depth) of the matches with ``depth0`` > 0 by the
-    11x11 SAD scan over +-5 px and a parabola fit (kernel W)."""
-    return _stereo_sad.stereo_sad(left_img, right_img, xy_l, ur0, depth0, bf)

@@ -43,6 +43,7 @@ from .kernels import match_rot as _match_rot
 from .kernels import pose_lm as _pose_lm
 from .kernels import project_gate as _project_gate
 from .kernels import rgbd_depth as _rgbd_depth
+from .kernels import stereo_sad as _stereo_sad
 from .kernels import two_view as _two_view
 from .map.state import MapState
 from .models.camera import Camera, undistort_points
@@ -242,7 +243,7 @@ class Tracker:
             ur0, depth0 = stereo.stereo_match(
                 feats, feats_r, self.cam.bf, self._f32(self._baseline),
                 self._scale_factors)
-            dev["ur"], dev["depth"] = stereo.subpixel_refine(
+            dev["ur"], dev["depth"] = _stereo_sad.stereo_sad(
                 img, right, feats.xy, ur0, depth0, self.cam.bf)
         elif depth_map is not None:
             # millimetre quantization and stride subsampling as the reference

@@ -4,6 +4,7 @@ port's copy of the reference's stereo pipeline test
 stereo path's kernels V and W (their plain versions here) on every frame."""
 
 import numpy as np
+import pytest
 import torch
 
 from orbslam2_tpu_torch import config as tconfig
@@ -31,11 +32,16 @@ def stereo_sequence(n=30, bf=52.0):
     return pairs, poses
 
 
+@pytest.fixture(scope="module")
+def stereo_pairs():
+    return stereo_sequence()
+
+
 class TestStereoPipeline:
-    def test_tracks_and_ate(self):
+    def test_tracks_and_ate(self, stereo_pairs):
         """Full stereo path: dual extraction, epipolar match + subpixel SAD,
         close-point KF gates, stereo triangulation arbitration."""
-        pairs, poses = stereo_sequence()
+        pairs, poses = stereo_pairs
         cfg = SlamConfig(sensor="stereo",
                          camera=CameraConfig(fx=260, fy=260, cx=160, cy=120,
                                              width=W, height=H, bf=52.0, fps=30),
@@ -59,7 +65,7 @@ class TestStereoPipeline:
         assert len(kfs) >= 3
 
 
-def test_slice_parity_with_reference():
+def test_slice_parity_with_reference(stereo_pairs):
     """The JAX SlamSystem (loop closing off) and the port run the same 8
     stereo pairs: the same frames are tracked, the same keyframes are made
     from the same frames, the first keyframe's features have a u_right in
@@ -69,7 +75,7 @@ def test_slice_parity_with_reference():
     from orbslam2_tpu import config as jconfig
     from orbslam2_tpu.system import SlamSystem as JSlamSystem
 
-    pairs, _ = stereo_sequence(8)
+    pairs = stereo_pairs[0][:8]   # the orbit's poses do not depend on its length
 
     def cfg(mod):
         return mod.SlamConfig(sensor="stereo",

@@ -34,7 +34,18 @@ Phases, each printing one line:
   4. runs the port's SlamSystem (RGB-D, 640x480, 1000 features, 8 levels)
      over 36 rendered frames and checks it is never lost, makes >= 3
      keyframes and keeps ATE under 0.035 m;
-  5. the stereo path: SlamSystem.track_stereo over 30 rendered KITTI-width
+  5. the relocalization path on phase 4's system and map: 3 blank frames
+     (LOST), then revisited views until it relocalizes, 3 blank frames again,
+     then novel views (mapped poses moved 12 cm and turned 4 degrees, the
+     reference test's) until it relocalizes, each within the reference's
+     0.15 m, through kernels Y (BoW), U (no rotation check), Z (EPnP RANSAC)
+     and O, C, Q, D, R (the projection passes); then save_map, a new
+     SlamSystem, load_map in localization mode and 15 frames: >= 10
+     tracked, median error < 0.1 m, the map not grown, temporary VO points
+     made. Its launch counts are set to 0 just before it and read just
+     after; Y, U without the rotation check and Z against their plain
+     versions on the arguments the path gave them, and a "reloc" line;
+  6. the stereo path: SlamSystem.track_stereo over 30 rendered KITTI-width
      pairs (examples/settings/KITTI00-02.yaml: 1241x376, 2000 features)
      at the reference e2e test's bounds (tracked >= frames - 1,
      ATE < 0.045 m, share of keyframe features with u_right above 0.3, >= 3
@@ -58,10 +69,12 @@ Imports nothing of JAX.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -75,6 +88,11 @@ STEREO_ATE = 0.045     # m, without scale
 STEREO_SHARE = 0.3     # keyframe features with a measured u_right
 MONO_ATE = 0.035       # m, with scale
 MONO_TRACKED = 25      # frames with a pose, of 50
+# the reference's relocalization and localization tests' bounds
+RELOC_ERR = 0.15       # m, camera centre after relocalizing
+LOC_FRAMES = 15        # localization frames after load_map
+LOC_TRACKED = 10       # of them tracked
+LOC_MEDIAN = 0.1       # m, median camera-centre error
 
 # the kernels (NAME) each path must launch
 FRONT = ("pyramid_level", "fast_score_nms", "orb_select", "orb_describe")
@@ -83,9 +101,12 @@ CASCADE = ("project_gate", "hamming_top2_gated", "claim_resolve", "pose_lm",
 MAPPING = ("triangulate", "fuse_match", "point_attrs", "ba_linearize",
            "ba_solve", "ba_update_cost", "ba_accept")
 PATHS = {
-    "rgbd": FRONT + ("rgbd_depth",) + CASCADE + MAPPING,
-    "stereo": FRONT + ("stereo_match", "stereo_sad") + CASCADE + MAPPING,
-    "mono": FRONT + ("match_rot", "two_view") + CASCADE + MAPPING,
+    "rgbd": FRONT + ("rgbd_depth",) + CASCADE + MAPPING + ("bow_words",),
+    "reloc": FRONT + ("rgbd_depth", "bow_words", "match_rot", "pnp_ransac")
+    + CASCADE,
+    "stereo": FRONT + ("stereo_match", "stereo_sad") + CASCADE + MAPPING
+    + ("bow_words",),
+    "mono": FRONT + ("match_rot", "two_view") + CASCADE + MAPPING + ("bow_words",),
     "fallback": ("match_rot",) + CASCADE,
 }
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
@@ -93,12 +114,21 @@ PATHS = {
 # integer work on the CUDA cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+PEAK_F64 = 34e12       # float64 outside the tensor cores
+POPC_PER_SM_CLOCK = 16  # __popc per SM per clock, compute capability 9.0
 
 
 def bound(n_bytes, n_ops):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def card_line() -> str:
@@ -959,6 +989,36 @@ class Capture:
         setattr(self.module, self.fn, self.orig)
 
 
+class Stopwatch:
+    """Within ``with``, each call of ``obj.name`` is synchronised before
+    and after and adds its host-clock seconds to ``acc[key]`` (so the
+    split serialises host and device)."""
+
+    def __init__(self, acc, key, obj, name):
+        self.acc, self.key, self.obj, self.name = acc, key, obj, name
+
+    def __enter__(self):
+        self.own = self.name in vars(self.obj)
+        self.orig = getattr(self.obj, self.name)
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.acc[self.key] += time.perf_counter() - t
+            return r
+
+        setattr(self.obj, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.obj, self.name, self.orig)
+        else:
+            delattr(self.obj, self.name)
+
+
 def run_sensor(sensor, cfg, frames, poses, dev):
     """One path: a new SlamSystem over ``frames`` through the sensor's entry
     point, the launch counts set to 0 just before and read just after.
@@ -1084,6 +1144,227 @@ def fallback_path(dev, slam, pair):
           f"{err:.2e}; {ms_k:.2f} ms with U vs {ms_p:.2f} ms with the plain matcher")
     path_line("fallback", [ms_k / 1e3], counts)
     return counts, cap_k.args, ms_k
+
+
+def centre_error(pose, Tcw_true, T0):
+    """Camera-centre error of ``pose`` against the truth in the map's frame
+    (anchored at the first mapped camera ``T0``)."""
+    return float(np.linalg.norm(np.linalg.inv(pose)[:3, 3]
+                                - (T0 @ np.linalg.inv(Tcw_true))[:3, 3]))
+
+
+def reloc_path(dev, slam, frames, poses):
+    """Phase 4's system after its 36 frames: 3 blank frames (LOST), then the
+    revisited views 10-19 until it relocalizes; 3 blank frames, then novel
+    views (poses 8, 12, 16, 20 moved 12 cm right, 3 cm up and turned 4
+    degrees, tests/test_tracking_robustness.py's) until it relocalizes;
+    each within 0.15 m. Then save_map, a new SlamSystem, load_map in
+    localization mode and frames 5-19: >= 10 tracked, median error < 0.1 m,
+    no map growth, temporary VO points made. Returns (counts, Y's, U's and
+    Z's arguments, the line's fields)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import bow_words, match_rot, pnp_ransac
+    from orbslam2_tpu_torch.system import SlamSystem
+    from orbslam2_tpu_torch.tracking import TrackingState
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.synthetic import make_box_room, render
+
+    cfg, tr, kfdb = slam.cfg, slam.tracker, slam.kfdb
+    K = slices.intrinsics(cfg)
+    planes = make_box_room(seed=0)
+    blank = np.zeros((H, W), np.float32)
+    yaw = np.deg2rad(4.0)
+    Rp = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                   [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    novel = []
+    for base in poses[8:24:4]:
+        Twc = np.linalg.inv(base)
+        Twc[:3, :3] = Twc[:3, :3] @ Rp
+        Twc[:3, 3] += np.array([0.12, 0.03, 0.0], np.float32)
+        T_new = np.linalg.inv(Twc).astype(np.float32)
+        novel.append((render(planes, K, T_new, W, H, return_depth=True), T_new))
+    revisit = [(frames[i], poses[i]) for i in range(10, 20)]
+
+    acc = defaultdict(float)
+    live = lambda a, k: bool(a[1].any())  # noqa: E731  (blank frames have no features)
+    no_rot = lambda a, k: not k.get("check_rotation", True)  # noqa: E731
+    out = {}
+    ts = 100.0
+    kernels.reset_launches()
+    with Capture(bow_words, "bow_words", live) as cy, \
+            Capture(match_rot, "match_rot", no_rot) as cu, \
+            Capture(pnp_ransac, "pnp_ransac") as cz, \
+            Capture(kfdb, "detect_relocalization_candidates") as cc, \
+            Stopwatch(acc, "bow", kfdb, "compute_bow"), \
+            Stopwatch(acc, "database", kfdb, "detect_relocalization_candidates"), \
+            Stopwatch(acc, "U", match_rot, "match_rot"), \
+            Stopwatch(acc, "Z", pnp_ransac, "pnp_ransac"), \
+            Stopwatch(acc, "passes", tr, "_project_pass"), \
+            Stopwatch(acc, "total", tr, "_relocalize"):
+        for name, views in (("revisited", revisit), ("novel", novel)):
+            for _ in range(3):
+                slices.track(slam, "rgbd", (blank, blank), ts)
+                ts += 1.0
+            check(slam.tracking_state == TrackingState.LOST, f"reloc: not LOST before {name}")
+            acc.clear()
+            for attempt, ((img, depth), T_true) in enumerate(views, 1):
+                pose = slices.track(slam, "rgbd", (img, depth), ts)
+                ts += 1.0
+                if pose is not None:
+                    break
+            check(pose is not None, f"reloc: no relocalization from {len(views)} {name} views")
+            err = centre_error(pose, T_true, poses[0])
+            pnp_res = pnp_ransac.unpack(cz.result.cpu().numpy(), cz.args[0][1].shape[0])
+            out[name] = dict(attempts=attempt, candidates=len(cc.result),
+                             winner=int(tr.ref_kf), pnp_inliers=pnp_res.n_inliers,
+                             final_inliers=int(tr.n_inliers_last), error_m=err,
+                             ms={k: 1e3 * v for k, v in acc.items()})
+            check(err < RELOC_ERR, f"reloc ({name}): error {err} m >= {RELOC_ERR}")
+        y_args, u_args, z_args = cy.args, cu.args, cz.args
+
+        # localization mode on the saved map
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_map.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t1 = time.perf_counter()
+        slam.save_map(path)
+        fresh = SlamSystem(cfg, device=dev)
+        fresh.load_map(path, localization_only=True)
+        t_io = time.perf_counter() - t1
+        os.remove(path)
+        n_kf, n_mp = int(fresh.map.kf_valid.sum()), int(fresh.map.mp_valid.sum())
+        orig = fresh.tracker._augment_vo_points
+        temp = []
+
+        def spy(sel, buf):
+            sel2, buf2 = orig(sel, buf)
+            temp.append(int((sel2 < 0).sum()))
+            return sel2, buf2
+
+        fresh.tracker._augment_vo_points = spy
+        errs, times = [], []
+        for i in range(5, 5 + LOC_FRAMES):
+            t1 = time.perf_counter()
+            pose = slices.track(fresh, "rgbd", frames[i], ts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            ts += 1.0
+            if pose is not None:
+                errs.append(centre_error(pose, poses[i], poses[0]))
+    counts = kernels.launch_counts()
+    med = float(np.median(errs)) if errs else 1e9
+    out["localization"] = dict(frames=LOC_FRAMES, tracked=len(errs), median_error_m=med,
+                               grew=[int(fresh.map.kf_valid.sum()) - n_kf,
+                                     int(fresh.map.mp_valid.sum()) - n_mp],
+                               temporary_points_max=max(temp, default=0),
+                               save_load_s=t_io, ms_a_frame=1e3 * sum(times) / len(times))
+    print("reloc " + json.dumps(out))
+    path_line("reloc", times, counts)
+    loc = out["localization"]
+    check(len(errs) >= LOC_TRACKED, f"localization: {len(errs)} of {LOC_FRAMES} tracked")
+    check(med < LOC_MEDIAN, f"localization: median error {med} m >= {LOC_MEDIAN}")
+    check(loc["grew"] == [0, 0], f"localization: the map grew by {loc['grew']}")
+    check(loc["temporary_points_max"] > 0, "localization: no temporary VO point")
+    return counts, y_args, u_args, z_args
+
+
+def reloc_rows(dev, record, y_args, u_args, z_args):
+    """Kernels Y and Z against their plain versions on the arguments the
+    relocalization path gave them (Y at its last query with features, Z at
+    the winning candidate), and kernel U without the rotation check
+    bit-exact (its timing printed beside U's row)."""
+    from orbslam2_tpu_torch.kernels import bow_words, match_rot, pnp_ransac
+    from orbslam2_tpu_torch.ops import matching, pnp
+
+    # Y: words bit-exact, the vector within 1e-6 relative
+    ya, ykw = y_args
+    wk, vk = bow_words.bow_words(*ya, **ykw)
+    wp, vp = bow_words.bow_words_plain(*ya, **ykw)
+    check(torch.equal(wk, wp), "kernel Y: words not bit-exact")
+    nz = vp != 0
+    check(torch.equal(nz, vk != 0), "kernel Y: the vectors' supports differ")
+    rel_y = float(((vk - vp).abs()[nz] / vp.abs()[nz]).max())
+    check(rel_y <= 1e-6, f"kernel Y: vector within {rel_y} relative")
+    desc, valid, vocab = ya[:3]
+    idf = ya[3] if len(ya) > 3 else ykw.get("idf")
+    n_valid, Wn = int(valid.sum()), vocab.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    y_bytes = nbytes(desc, valid, vocab) + (0 if idf is None else nbytes(idf)) \
+        + 4 * desc.shape[0] + 4 * Wn
+    t_pop = n_valid * Wn * 8 / (POPC_PER_SM_CLOCK * sms * clock)
+    t_byt = y_bytes / PEAK_BYTES
+    a_bits = matching.unpack_bits(desc[valid]).float()
+    v_bits = matching.unpack_bits(vocab).float()
+    na, nv = a_bits.sum(1, keepdim=True), v_bits.sum(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_y = cuda_ms(lambda: (na + nv - 2.0 * (a_bits @ v_bits.T)).argmin(1))
+    record(bow_words, rel_y, lambda: bow_words.bow_words(*ya, **ykw),
+           cuda_ms(lambda: bow_words.bow_words_plain(*ya, **ykw)),
+           f"N={desc.shape[0]} ({n_valid} valid) x W={Wn}: words bit-exact, vector "
+           f"within {rel_y:.2e} relative; bound: {n_valid} x {Wn} x 8 popcounts at "
+           f"{POPC_PER_SM_CLOCK}/clock/SM x {sms} SMs x {clock / 1e9:.3f} GHz; library: "
+           f"the reference's (N, 256) x (256, W) float product of the bits + argmin",
+           n_bytes=y_bytes, n_ops=0, library_ms=lib_y, per_call=2,
+           bound_override=(1e3 * max(t_pop, t_byt), "operations" if t_pop >= t_byt else "bytes"))
+
+    # U without the rotation check: idx, dist, valid bit-exact
+    ua, ukw = u_args
+    rk = match_rot.match_rot(*ua, **ukw)
+    rp = match_rot.match_rot_plain(*ua, **ukw)
+    check(all(torch.equal(a, b) for a, b in zip(rk, rp)),
+          "kernel U without the rotation check not bit-exact")
+    print(f"kernel match_rot without the rotation check (relocalization, Na="
+          f"{ua[0].shape[0]} Nb={ua[1].shape[0]}): {int(rk.valid.sum())} matches, "
+          f"bit-exact; {cuda_ms(lambda: match_rot.match_rot(*ua, **ukw)):.4f} ms a call "
+          f"vs plain {cuda_ms(lambda: match_rot.match_rot_plain(*ua, **ukw)):.4f} ms")
+
+    # Z: ok equal, inliers >= 99%, rotation 1e-3 rad, translation 1e-3 m
+    za, zkw = z_args
+    cam, pts, uv, sigma2, zvalid, samples = za
+    N, I = pts.shape[0], samples.shape[0]
+    rk = pnp_ransac.unpack(pnp_ransac.pnp_ransac(*za, **zkw).cpu().numpy(), N)
+    rp = pnp_ransac.unpack(pnp_ransac.pnp_ransac_plain(*za, **zkw).cpu().numpy(), N)
+    agree = float((rk.inliers == rp.inliers).mean())
+    chord = np.linalg.norm(rk.Tcw[:3, :3].astype(np.float64) - rp.Tcw[:3, :3])
+    rot = float(2.0 * np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)))
+    trans = float(np.abs(rk.Tcw[:3, 3] - rp.Tcw[:3, 3]).max())
+    check(rk.ok == rp.ok and agree >= 0.99 and rot < 1e-3 and trans < 1e-3,
+          f"kernel Z: ok {rk.ok}/{rp.ok}, inliers agree {agree}, rotation {rot}, "
+          f"translation {trans}")
+    # the work this run's data needs, from the plain stages: every
+    # hypothesis's minimal EPnP, its inlier test over N, the winner's
+    # weighted EPnP over its inliers and two more inlier tests
+    hyp = pnp.hypotheses(cam, pts, uv, samples)
+    _, counts = pnp.count_inliers(hyp, cam, pts, uv, sigma2, zvalid)
+    n_best = int(counts.max())
+    # the least an EPnP solve takes past its rows: the 3x3 PCA (~150), the
+    # 4x4 inverse (~100), a 12x12 eigen-solve for 4 vectors (4 n^3 / 3 +
+    # 4 x 6 n^2 ~ 5800), the 6 x 10 system (~400), three least squares
+    # (~900), 3 x 5 Gauss-Newton steps (~300 each) and three Horn
+    # alignments (~300 each); per point of a set its barycentric
+    # coordinates (16), M^T M's two rows (78 x 2 x 2), the depth and SSE of
+    # three cases (3 x 40); per point and pose an inlier test (~25, float32)
+    solve = 150 + 100 + 5800 + 400 + 900 + 15 * 300 + 3 * 300
+    per_point = 16 + 78 * 4 + 120
+    f64 = I * (solve + 4 * per_point) + solve + n_best * per_point
+    f32 = (I + 2) * N * 25
+    z_bytes = nbytes(pts, uv, sigma2, zvalid, samples) + 4 * (18 + N)
+    t_ops = f32 / PEAK_OPS + f64 / PEAK_F64
+    t_byt = z_bytes / PEAK_BYTES
+    s = samples.long()
+    ones = torch.ones(s.shape, dtype=torch.float64, device=dev)
+    _, _, MtM = pnp.normal_matrices(pts.double()[s], uv.double()[s], ones, cam)
+    lib_z = cuda_ms(lambda: torch.linalg.eigh(MtM))
+    record(pnp_ransac, max(rot, trans), lambda: pnp_ransac.pnp_ransac(*za, **zkw),
+           cuda_ms(lambda: pnp_ransac.pnp_ransac_plain(*za, **zkw), reps=5),
+           f"N={N} matches, I={I} hypotheses, best {n_best} inliers; ok {rk.ok}, "
+           f"{rk.n_inliers} inliers (plain {rp.n_inliers}), agree {agree:.4f}, "
+           f"rotation {rot:.2e} rad, translation {trans:.2e} m; bound: float64 at "
+           f"{PEAK_F64 / 1e12:.0f} TFLOP/s, float32 at {PEAK_OPS / 1e12:.0f}; library: "
+           f"torch.linalg.eigh of the {I} (12, 12) M^T M",
+           n_bytes=z_bytes, n_ops=0, library_ms=lib_z, per_call=2,
+           bound_override=(1e3 * max(t_ops, t_byt), "operations" if t_ops >= t_byt else "bytes"))
 
 
 def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
@@ -1293,15 +1574,17 @@ def main():
     rows = []
 
     def record(mod, err, fn, plain_ms, note, n_bytes, n_ops, library_ms=None,
-               per_call=1):
+               per_call=1, bound_override=None):
         """One kernel's row: ms is one call of ``fn`` between CUDA events
         (host work included; ``per_call`` launches, e.g. every pyramid
         level), device_ms the kernel's own device time per call, plain_ms
         the plain version's call between CUDA events, library_ms one
-        PyTorch call of the same function where there is one."""
+        PyTorch call of the same function where there is one. The bound is
+        bound(n_bytes, n_ops), or ``bound_override`` (ms, by) where the work
+        runs at another peak."""
         ms = cuda_ms(fn)
         dev_ms = device_ms(fn, mod.FUNCTION, per_call=per_call)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+        bound_ms, bound_by = bound_override or bound(n_bytes, n_ops)
         seen, launched = profile_gaps.pop(mod.FUNCTION, (20 * per_call,) * 2)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
@@ -1493,9 +1776,14 @@ def main():
     check(slam.tracking_state == TrackingState.OK, "rgbd: final state not OK")
     check(n_kf >= 3, f"rgbd: only {n_kf} keyframes")
     check(ate < ATE_BOUND, f"rgbd ATE {ate} >= {ATE_BOUND}")
+    print(f"rgbd: kernel Y launched {counts['bow_words']} times for "
+          f"{int(slam.kfdb.in_db.sum())} keyframes in the database")
     path_counts = {"rgbd": counts}
 
-    # ---- phase 5: the stereo, fallback and monocular paths -----------------
+    # ---- phase 5: relocalization and localization mode --------------------
+    path_counts["reloc"], y_args, ur_args, z_args = reloc_path(dev, slam, frames, poses)
+
+    # ---- phase 6: the stereo, fallback and monocular paths -----------------
     slam_s, path_counts["stereo"], pairs, v_args, w_args = stereo_path(dev)
     path_counts["fallback"], u_args, _ = fallback_path(dev, slam_s, pairs[-1])
     path_counts["mono"], uw_args, x_args = mono_path(dev)
@@ -1505,7 +1793,8 @@ def main():
                   f"kernel {name} never launched on the {path} path")
     n_retries = len(profile_retries)
     port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args)
-    print(f"device times of U, V, W, X: profiles that missed launches "
+    reloc_rows(dev, record, y_args, ur_args, z_args)
+    print(f"device times of U, V, W, X, Y, Z: profiles that missed launches "
           f"(kernel, events, launches): {profile_retries[n_retries:] or 'none'}")
     total = {mod.NAME: sum(c[mod.NAME] for c in path_counts.values())
              for mod in kernels.KERNELS}

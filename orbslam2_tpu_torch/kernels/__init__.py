@@ -26,22 +26,24 @@ time it launches the CUDA kernel:
   stereo_match    V  stereo row-band descriptor match (ops/stereo.py)
   stereo_sad      W  stereo 11x11 SAD subpixel        (tracking.py)
   two_view        X  two-view H/F initializer         (ops/initializer.py)
+  bow_words       Y  BoW words + TF-IDF vector        (ops/bow.py)
+  pnp_ransac      Z  EPnP RANSAC + refine             (ops/pnp.py, tracking.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
 """
 
 from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost,
-               cascade_pack, claim_resolve, describe, fast_score, fuse_match,
-               hamming, match_rot, orb_select, point_attrs, pose_lm,
-               project_gate, pyramid, rgbd_depth, stereo_match, stereo_sad,
-               triangulate, two_view)
+               bow_words, cascade_pack, claim_resolve, describe, fast_score,
+               fuse_match, hamming, match_rot, orb_select, pnp_ransac,
+               point_attrs, pose_lm, project_gate, pyramid, rgbd_depth,
+               stereo_match, stereo_sad, triangulate, two_view)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
            point_attrs, project_gate, claim_resolve, cascade_pack,
            triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
-           two_view)
+           two_view, bow_words, pnp_ransac)
 
 
 def reset_launches():

@@ -14,8 +14,9 @@ adjugate inverse of D + damp I. Per camera pair the reduced system
     S   = blockdiag(sum Jp^T w Jp) - sum_m sum_{o1,o2} E_o1 D^-1 E_o2^T
     b_S = sum Jp^T w r - sum_m E_o D^-1 b_l
 
-with E_o = Jp^T w Jl. The plain version scatters the same per-observation
-and per-pair blocks with ``index_add_``.
+with E_o = Jp^T w Jl. The plain version forms the pair sums as one matrix
+product of the landmarks' blocks placed in their cameras' rows and
+scatters the diagonal blocks with ``index_add_``.
 
 Limits of the kernel: K <= 64 cameras, M <= 4096 landmarks, O <= 8
 observation slots; larger problems raise.
@@ -155,17 +156,23 @@ def ba_linearize_plain(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
     Dinv = damped_inv3(D, lam, point_valid)
     ED = E @ Dinv[:, None]                                      # (M, O, 6, 3)
 
-    # camera blocks: each observation's Jp^T w Jp on the diagonal, each
-    # ordered pair of a landmark's observations -E_o1 D^-1 E_o2^T at
-    # (k(o1), k(o2)); slots without a camera add exact zeros to block 0
+    # camera blocks: each ordered pair of a landmark's observations adds
+    # -E_o1 D^-1 E_o2^T at (k(o1), k(o2)), each observation Jp^T w Jp on
+    # the diagonal; slots without a camera add exact zeros to camera 0. The
+    # pairs are one product: each landmark's E D^-1 and E placed in their
+    # cameras' rows, (6K, 3M) x (3M, 6K)
     k = obs_kf.long().clamp_min(0)
-    blocks = torch.zeros((K * K, 6, 6), dtype=poses.dtype, device=poses.device)
-    blocks.index_add_(0, (k * (K + 1)).reshape(-1),
-                      (Jpw_t @ Jp).reshape(-1, 6, 6))
-    pair = -(ED[:, :, None] @ E[:, None].transpose(-1, -2))     # (M, O, O, 6, 6)
-    blocks.index_add_(0, (k[:, :, None] * K + k[:, None, :]).reshape(-1),
-                      pair.reshape(-1, 6, 6))
-    S = blocks.reshape(K, K, 6, 6).transpose(1, 2).reshape(6 * K, 6 * K)
+    rows = torch.arange(M, device=k.device)[:, None].expand(M, O)
+    by_cam = []
+    for blk in (ED, E):
+        z = torch.zeros((M, K, 6, 3), dtype=poses.dtype, device=poses.device)
+        z.index_put_((rows, k), blk, accumulate=True)
+        by_cam.append(z.permute(1, 2, 0, 3).reshape(6 * K, 3 * M))
+    S = -(by_cam[0] @ by_cam[1].T)
+    diag = torch.zeros((K, 6, 6), dtype=poses.dtype, device=poses.device)
+    diag.index_add_(0, k.reshape(-1), (Jpw_t @ Jp).reshape(-1, 6, 6))
+    cams = torch.arange(K, device=k.device)
+    S.view(K, 6, K, 6)[cams, :, cams, :] += diag
     b_o = (Jpw_t @ r_c)[..., 0] - (ED @ b_l[:, None, :, None])[..., 0]
     b_S = torch.zeros((K, 6), dtype=poses.dtype, device=poses.device)
     b_S.index_add_(0, k.reshape(-1), b_o.reshape(-1, 6))

@@ -68,14 +68,16 @@ _SIGNATURES = {
     + [_P] * 4,
     "osl_triangulate": [_P] * 15 + [_I, _I] + [_P] * 5 + [_F] * 3
     + [_I, _P, _P, _I, _F] + [_P] * 8,
-    "osl_match_rot": [_P] * 4 + [_I] + [_P] * 4 + [_I, _F, _I, _I, _F, _I, _F, _F]
-    + [_P] * 8,
+    "osl_match_rot": [_P] * 4 + [_I] + [_P] * 4 + [_I, _F, _I, _I, _F, _I, _I,
+                                                   _F, _F] + [_P] * 8,
     "osl_stereo_match": [_P] * 4 + [_I] + [_P] * 4 + [_I, _P, _F, _F] + [_P] * 3,
     "osl_stereo_sad": [_P, _P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P],
     "osl_two_view_hypotheses": [_P, _P, _P, _I, _P, _P, _P, _P],
     "osl_two_view_refine": [_P, _P, _P, _I, _P, _P] + [_F] * 4 + [_P] * 3,
     "osl_two_view_check": [_P, _P, _P, _I] + [_F] * 4 + [_P] * 7,
     "osl_two_view_select": [_P, _I] + [_P] * 8,
+    "osl_bow_words": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    "osl_pnp_ransac": [_P] * 4 + [_I, _P, _I] + [_F] * 4 + [_I] + [_P] * 6,
 }
 
 _lib: Optional[ctypes.CDLL] = None

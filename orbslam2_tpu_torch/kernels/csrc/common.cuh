@@ -1,5 +1,6 @@
-// Shared helpers for the orbslam2_tpu_torch kernels: clamping, se3_exp, and
-// the DLT triangulation with its unrolled 4x4 Cholesky (kernels S and X).
+// Shared helpers for the orbslam2_tpu_torch kernels: clamping, se3_exp, the
+// DLT triangulation with its unrolled 4x4 Cholesky (kernels S and X), cyclic
+// Jacobi eigen-solves and a fixed-order block sum in double (X and Z).
 //
 // Every entry point has a plain C interface (loaded with ctypes): raw device
 // pointers, int sizes, and the caller's cudaStream_t passed as void*. An
@@ -151,6 +152,63 @@ __device__ inline void dlt(const float* P1, const float* P2, float u1, float v1,
   if (fabsf(w) < 1e-8f) w = w < 0.0f ? -1e-8f : 1e-8f;
 #pragma unroll
   for (int m = 0; m < 3; ++m) X[m] = Y[m] * dd[m] / w;
+}
+
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Cyclic Jacobi: a (symmetric) is diagonalized in place, v gets the
+// eigenvectors as columns.
+template <int n>
+__device__ inline void jacobi(double (&a)[n][n], double (&v)[n][n]) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) v[i][j] = i == j ? 1.0 : 0.0;
+  for (int sweep = 0; sweep < 40; ++sweep) {
+    double off = 0.0, diag = 0.0;
+    for (int p = 0; p < n; ++p) {
+      diag += a[p][p] * a[p][p];
+      for (int q = p + 1; q < n; ++q) off += a[p][q] * a[p][q];
+    }
+    if (!(off > 1e-32 * diag)) break;
+    for (int p = 0; p < n - 1; ++p) {
+      for (int q = p + 1; q < n; ++q) {
+        const double apq = a[p][q];
+        if (apq == 0.0) continue;
+        const double theta = (a[q][q] - a[p][p]) / (2.0 * apq);
+        const double t = (theta >= 0.0 ? 1.0 : -1.0) /
+                         (fabs(theta) + sqrt(theta * theta + 1.0));
+        const double c = 1.0 / sqrt(t * t + 1.0);
+        const double s = t * c;
+        for (int k = 0; k < n; ++k) {
+          const double akp = a[k][p], akq = a[k][q];
+          a[k][p] = c * akp - s * akq;
+          a[k][q] = s * akp + c * akq;
+        }
+        for (int k = 0; k < n; ++k) {
+          const double apk = a[p][k], aqk = a[q][k];
+          a[p][k] = c * apk - s * aqk;
+          a[q][k] = s * apk + c * aqk;
+        }
+        for (int k = 0; k < n; ++k) {
+          const double vkp = v[k][p], vkq = v[k][q];
+          v[k][p] = c * vkp - s * vkq;
+          v[k][q] = s * vkp + c * vkq;
+        }
+      }
+    }
+  }
+}
+
+// Sum over the block in a fixed order; every thread gets the sum.
+__device__ inline double block_sum(double v, double* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+  return s;
 }
 
 }  // namespace osl

@@ -3,7 +3,9 @@
 // Replaces orbslam2_tpu/ops/matching.py: match_descriptors with mutual=True
 // and check_rotation=True, the pair mask either absent or the radius window
 // of orbslam2_tpu/tracking.py: match_frames_windowed (SearchForInitialization),
-// as the reference-keyframe fallback and the monocular initialisation call it.
+// as the reference-keyframe fallback and the monocular initialisation call it;
+// with check_rotation = 0, match_descriptors(mutual=True) with no rotation
+// check, as relocalization calls it (orbslam2_tpu/tracking.py:1315).
 //
 // Bound on the H100: the pair work. The reference builds the (Na, Nb)
 // distance matrix, the pair mask and top-2 along both axes; at Na = Nb =
@@ -23,7 +25,8 @@
 // key names the row), bins the angle difference into 30 bins with
 // jnp.mod's floor-mod (fmodf, then + 2 pi where negative), builds the
 // histogram in shared memory, keeps the top 3 bins (lax.top_k: the lower
-// bin first on equal counts) by the 10% rule, and writes idx, dist, valid.
+// bin first on equal counts) by the 10% rule, and writes idx, dist, valid;
+// without the rotation check it writes the rows the other gates passed.
 // All outputs are integers and bit-exact against the plain version.
 #include "common.cuh"
 
@@ -105,8 +108,8 @@ __global__ void match_rot_gates_kernel(
     int Na, const float* __restrict__ angle_b, const int* __restrict__ row_best,
     const int* __restrict__ row_second, const int* __restrict__ row_idx,
     const unsigned long long* __restrict__ col_key, int max_dist,
-    float nn_ratio, int use_ratio, float two_pi, float bin_scale,
-    int* __restrict__ out_idx, int* __restrict__ out_dist,
+    float nn_ratio, int use_ratio, int check_rotation, float two_pi,
+    float bin_scale, int* __restrict__ out_idx, int* __restrict__ out_dist,
     uint8_t* __restrict__ out_valid) {
   __shared__ short row_bin[kMaxA];  // the row's bin where it passed, else -1
   __shared__ int counts[kHisto];
@@ -123,7 +126,9 @@ __global__ void match_rot_gates_kernel(
     }
     ok = ok && static_cast<int>(col_key[j] & 0xffffffffull) == i;
     int bin = -1;
-    if (ok) {
+    if (ok && !check_rotation) {
+      bin = 0;
+    } else if (ok) {
       float m = fmodf(angle_a[i] - angle_b[j], two_pi);
       if (m != 0.0f && m < 0.0f) m = m + two_pi;
       bin = osl::clampi(static_cast<int>(m * bin_scale), 0, kHisto - 1);
@@ -132,7 +137,9 @@ __global__ void match_rot_gates_kernel(
     row_bin[i] = static_cast<short>(bin);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && !check_rotation) {
+    keep_bin[0] = 1;
+  } else if (threadIdx.x == 0) {
     int top[3];
     for (int k = 0; k < 3; ++k) {
       int arg = -1;
@@ -164,7 +171,8 @@ OSL_EXPORT int osl_match_rot(
     const float* angle_a, int Na, const uint8_t* desc_b,
     const uint8_t* valid_b, const float* xy_b, const float* angle_b, int Nb,
     float window, int use_window, int max_dist, float nn_ratio, int use_ratio,
-    float two_pi, float bin_scale, int* row_best, int* row_second,
+    int check_rotation, float two_pi, float bin_scale, int* row_best,
+    int* row_second,
     int* row_idx, unsigned long long* col_key, int* out_idx, int* out_dist,
     uint8_t* out_valid, void* stream) {
   if (Na <= 0) return 0;
@@ -182,7 +190,7 @@ OSL_EXPORT int osl_match_rot(
   if (err != cudaSuccess) return static_cast<int>(err);
   match_rot_gates_kernel<<<1, 1024, 0, st>>>(
       valid_a, angle_a, Na, angle_b, row_best, row_second, row_idx, col_key,
-      max_dist, nn_ratio, use_ratio, two_pi, bin_scale, out_idx, out_dist,
-      out_valid);
+      max_dist, nn_ratio, use_ratio, check_rotation, two_pi, bin_scale, out_idx,
+      out_dist, out_valid);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,49 +44,8 @@ constexpr float kThF = 3.841f;   // TH_F
 constexpr float kThScore = 5.991f;
 constexpr int kMaxN = 8192;      // correspondences the check keeps in shared memory
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// Cyclic Jacobi: a (symmetric) is diagonalized in place, v gets the
-// eigenvectors as columns.
-template <int n>
-__device__ void jacobi(double (&a)[n][n], double (&v)[n][n]) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) v[i][j] = i == j ? 1.0 : 0.0;
-  for (int sweep = 0; sweep < 40; ++sweep) {
-    double off = 0.0, diag = 0.0;
-    for (int p = 0; p < n; ++p) {
-      diag += a[p][p] * a[p][p];
-      for (int q = p + 1; q < n; ++q) off += a[p][q] * a[p][q];
-    }
-    if (!(off > 1e-32 * diag)) break;
-    for (int p = 0; p < n - 1; ++p) {
-      for (int q = p + 1; q < n; ++q) {
-        const double apq = a[p][q];
-        if (apq == 0.0) continue;
-        const double theta = (a[q][q] - a[p][p]) / (2.0 * apq);
-        const double t = (theta >= 0.0 ? 1.0 : -1.0) /
-                         (fabs(theta) + sqrt(theta * theta + 1.0));
-        const double c = 1.0 / sqrt(t * t + 1.0);
-        const double s = t * c;
-        for (int k = 0; k < n; ++k) {
-          const double akp = a[k][p], akq = a[k][q];
-          a[k][p] = c * akp - s * akq;
-          a[k][q] = s * akp + c * akq;
-        }
-        for (int k = 0; k < n; ++k) {
-          const double apk = a[p][k], aqk = a[q][k];
-          a[p][k] = c * apk - s * aqk;
-          a[q][k] = s * apk + c * aqk;
-        }
-        for (int k = 0; k < n; ++k) {
-          const double vkp = v[k][p], vkq = v[k][q];
-          v[k][p] = c * vkp - s * vkq;
-          v[k][q] = s * vkp + c * vkq;
-        }
-      }
-    }
-  }
-}
+using osl::block_sum;
+using osl::jacobi;
 
 // The eigenvector of the smallest eigenvalue of the 9x9 normal matrix A.
 __device__ void smallest_eigvec9(double (&A)[9][9], double (&out)[3][3]) {
@@ -182,18 +141,6 @@ __device__ void rank2(double (&F)[3][3]) {
 struct Norm {
   float m1x, m1y, s1x, s1y, m2x, m2y, s2x, s2y;
 };
-
-// Sum over the block in a fixed order; every thread gets the sum.
-__device__ double block_sum(double v, double* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
-  return s;
-}
 
 // initializer.normalize_points for both views
 __device__ Norm block_normalize(const float* x1, const float* x2,

@@ -2,8 +2,14 @@
 
 Replaces ``orbslam2_tpu/ops/pose_opt.py``: ``optimize_pose``. CUDA source:
 ``csrc/pose_lm.cu`` (one thread block runs all rounds x iterations in one
-launch; on the H100 the eager form is bound by ~1600 dependent small
-launches per call, the kernel by its per-iteration block reductions).
+launch; on the H100 the eager form is bound by its hundreds of dependent
+small launches per call, the kernel by its per-iteration block
+reductions).
+
+The plain version keeps the linearisation of a rejected step (the pose did
+not move) and solves the 6x6 system with the operations of
+``linalg_small.solve_spd_small`` on host float32 scalars; both give the
+same bits as the step-by-step tensor form at a fraction of its operations.
 
 Schedule (the reference's): mono/stereo reprojection edges with 3x6
 Jacobians for a left twist update, Huber weights with delta^2 = 5.991 /
@@ -17,11 +23,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import build
 from ..ops import geometry as geo
-from ..ops import linalg_small
 
 NAME = "pose_lm"
 FUNCTION = "pose_lm_kernel"  # the __global__ function it launches
@@ -39,9 +45,8 @@ def residuals_jacobians(T, cam, pts, obs, is_stereo, with_jac=True):
     camera-frame point is written out per component, as the kernel
     computes it."""
     R, t = T[:3, :3], T[:3, 3]
-    pc = [R[i, 0] * pts[:, 0] + R[i, 1] * pts[:, 1] + R[i, 2] * pts[:, 2] + t[i]
-          for i in range(3)]
-    x, y, zr = pc
+    pc = R[:, 0] * pts[:, 0:1] + R[:, 1] * pts[:, 1:2] + R[:, 2] * pts[:, 2:3] + t
+    x, y, zr = pc.unbind(1)
     z = zr.clamp_min(1e-6)
     inv_z = 1.0 / z
     inv_z2 = inv_z * inv_z
@@ -53,19 +58,54 @@ def residuals_jacobians(T, cam, pts, obs, is_stereo, with_jac=True):
                      torch.where(is_stereo, ur - obs[:, 2], zero)], dim=1)
     if not with_jac:
         return r, None, z
-    jp = [
-        [cam.fx * inv_z, zero, -cam.fx * x * inv_z2],
-        [zero, cam.fy * inv_z, -cam.fy * y * inv_z2],
-        [torch.where(is_stereo, cam.fx * inv_z, zero), zero,
-         torch.where(is_stereo, -cam.fx * x * inv_z2 + cam.bf * inv_z2, zero)],
-    ]
-    J = torch.stack([
-        torch.stack([j[0], j[1], j[2],
-                     j[1] * (-zr) + j[2] * y,
-                     j[0] * zr + j[2] * (-x),
-                     j[0] * (-y) + j[1] * x], dim=1)
-        for j in jp], dim=1)                                    # (n, 3, 6)
-    return r, J, z
+    j02 = -cam.fx * x * inv_z2
+    jp = torch.stack([
+        torch.stack([cam.fx * inv_z, zero, j02], dim=1),
+        torch.stack([zero, cam.fy * inv_z, -cam.fy * y * inv_z2], dim=1),
+        torch.stack([torch.where(is_stereo, cam.fx * inv_z, zero), zero,
+                     torch.where(is_stereo, j02 + cam.bf * inv_z2, zero)], dim=1),
+    ], dim=1)                                                   # (n, 3, 3)
+    j0, j1, j2 = jp[..., 0:1], jp[..., 1:2], jp[..., 2:3]
+    J = torch.cat([jp, j1 * (-zr)[:, None, None] + j2 * y[:, None, None],
+                   j0 * zr[:, None, None] + j2 * (-x)[:, None, None],
+                   j0 * (-y)[:, None, None] + j1 * x[:, None, None]], dim=2)
+    return r, J, z                                              # (n, 3, 6)
+
+
+def _solve6_host(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``linalg_small.solve_spd_small`` of one system: the same float32
+    operations in the same order, on host scalars (the square roots by
+    torch)."""
+    A, b, dev = A.cpu().numpy(), b.cpu().numpy(), A.device
+    n = A.shape[0]
+    eps, one = np.float32(1e-12), np.float32(1.0)
+    L = [[None] * n for _ in range(n)]
+    with np.errstate(all="ignore"):
+        for j in range(n):
+            s = A[j, j]
+            for k in range(j):
+                s = s - L[j][k] * L[j][k]
+            # torch's sqrt, which rounds unlike numpy's in the last bit
+            L[j][j] = torch.sqrt(torch.from_numpy(np.maximum(s, eps)[None]))[0].numpy()
+            inv = one / L[j][j]
+            for i in range(j + 1, n):
+                s = A[i, j]
+                for k in range(j):
+                    s = s - L[i][k] * L[j][k]
+                L[i][j] = s * inv
+        y = [None] * n
+        for i in range(n):
+            s = b[i]
+            for k in range(i):
+                s = s - L[i][k] * y[k]
+            y[i] = s / L[i][i]
+        x = [None] * n
+        for i in reversed(range(n)):
+            s = y[i]
+            for k in range(i + 1, n):
+                s = s - L[k][i] * x[k]
+            x[i] = s / L[i][i]
+    return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
 
 def _outputs(N, dev, out):
@@ -116,33 +156,36 @@ def _pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds, iters):
 
     T = Tcw_init.clone()
     inl = torch.ones_like(st)
+    eye = torch.eye(6, dtype=T.dtype, device=T.device)
     for rnd in range(rounds):
         use_huber = rnd < 2
         mask = torch.ones_like(st) if rnd < 2 else inl
         lam = torch.tensor(1e-3, dtype=T.dtype, device=T.device)
         cost = torch.where(mask, rho(edge_chi2(T, P, O, st, inv_s2), use_huber),
                            0.0).sum()
+        system = None  # (H, b) at T, kept while steps are rejected
         for _ in range(iters):
-            r, J, _ = residuals_jacobians(T, cam, P, O, st)
-            chi2 = (r * r).sum(1) * inv_s2
-            w_h = torch.where(chi2 <= chi2_th, 1.0,
-                              torch.sqrt(chi2_th / chi2.clamp_min(1e-12)))
-            w = (w_h if use_huber else torch.ones_like(w_h)) * inv_s2
-            w = torch.where(mask, w, 0.0)
-            Jw = J * w[:, None, None]
-            H = torch.einsum("nri,nrj->ij", Jw, J)
-            b = torch.einsum("nri,nr->i", Jw, r)
-            eye = torch.eye(6, dtype=H.dtype, device=H.device)
+            if system is None:
+                r, J, _ = residuals_jacobians(T, cam, P, O, st)
+                chi2 = (r * r).sum(1) * inv_s2
+                w_h = torch.where(chi2 <= chi2_th, 1.0,
+                                  torch.sqrt(chi2_th / chi2.clamp_min(1e-12)))
+                w = (w_h if use_huber else torch.ones_like(w_h)) * inv_s2
+                w = torch.where(mask, w, 0.0)
+                Jw = J * w[:, None, None]
+                system = (torch.einsum("nri,nrj->ij", Jw, J),
+                          torch.einsum("nri,nr->i", Jw, r))
+            H, b = system
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye
-            dx = -linalg_small.solve_spd_small(Hd, b)
+            dx = -_solve6_host(Hd, b)
             T_new = geo.se3_exp(dx) @ T
             r2, _, _ = residuals_jacobians(T_new, cam, P, O, st, with_jac=False)
             chi2_new = (r2 * r2).sum(1) * inv_s2
             cost_new = torch.where(mask, rho(chi2_new, use_huber), 0.0).sum()
-            accept = cost_new < cost
-            T = torch.where(accept, T_new, T)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            cost = torch.where(accept, cost_new, cost)
+            if bool(cost_new < cost):
+                T, cost, lam, system = T_new, cost_new, lam * 0.5, None
+            else:
+                lam = lam * 4.0
         inl = edge_chi2(T, P, O, st, inv_s2) <= chi2_th
 
     st_all = obs[:, 2] >= 0

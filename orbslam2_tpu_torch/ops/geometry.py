@@ -1,6 +1,6 @@
-"""Batched SO(3)/SE(3) geometry, quaternions and DLT triangulation (port of
-``orbslam2_tpu.ops.geometry``; Sim(3) and Horn alignment come with loop
-closing).
+"""Batched SO(3)/SE(3) geometry, quaternions, Horn alignment and DLT
+triangulation (port of ``orbslam2_tpu.ops.geometry``; the Sim(3) group
+comes with loop closing).
 
 Conventions as the reference: ``Tcw`` is the 4x4 camera-from-world
 transform, quaternions are (w, x, y, z), se3 tangents are (rho, phi)
@@ -136,10 +136,15 @@ def se3_orthonormalize(T: torch.Tensor) -> torch.Tensor:
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
-    """(..., 6) twist (rho, phi) -> (..., 4, 4)."""
+    """(..., 6) twist (rho, phi) -> (..., 4, 4): so3_exp(phi) and
+    so3_left_jacobian(phi) @ rho, sharing their coefficients and K K."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    R = so3_exp(phi)
-    V = so3_left_jacobian(phi)
+    a, b, c = _exp_coeffs(phi)
+    K = hat(phi)
+    KK = K @ K
+    eye = _eye3(phi).expand(K.shape)
+    R = eye + a[..., None, None] * K + b[..., None, None] * KK
+    V = eye + b[..., None, None] * K + c[..., None, None] * KK
     t = (V @ rho[..., None])[..., 0]
     return se3_from_rt(R, t)
 
@@ -201,6 +206,52 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
         idx.shape + (1, 4)))[..., 0, :]
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
+
+
+# ---------------------------------------------------------------------------
+# Horn absolute orientation (closed form, with optional scale)
+# ---------------------------------------------------------------------------
+
+def horn_align(src: torch.Tensor, dst: torch.Tensor,
+               weights: torch.Tensor | None = None, with_scale: bool = True):
+    """Closed-form similarity aligning src -> dst: dst ~ s R src + t (Horn
+    1987, the quaternion method), batched.
+
+    src, dst (..., N, 3) paired points; ``weights`` (..., N) non-negative;
+    ``with_scale`` solves for s, else s = 1. Returns (s (...,), R (..., 3,
+    3), t (..., 3)). The optimal quaternion is the eigenvector of the
+    largest eigenvalue of Horn's symmetric 4x4 matrix.
+    """
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    wsum = torch.sum(weights, dim=-1, keepdim=True).clamp_min(_EPS)
+    w = (weights / wsum)[..., None]
+    mu_src = torch.sum(src * w, dim=-2)
+    mu_dst = torch.sum(dst * w, dim=-2)
+    sc = src - mu_src[..., None, :]
+    dc = dst - mu_dst[..., None, :]
+    M = torch.einsum("...ni,...nj->...ij", sc * w, dc)
+    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    N = torch.stack([
+        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
+        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
+    ], dim=-2)
+    _, evecs = torch.linalg.eigh(N)
+    R = quat_to_rotmat(evecs[..., :, -1])
+    if with_scale:
+        Rs = torch.einsum("...ij,...nj->...ni", R, sc)
+        num = torch.sum(torch.sum(dc * Rs, dim=-1) * weights / wsum, dim=-1)
+        den = torch.sum(torch.sum(sc * sc, dim=-1) * weights / wsum,
+                        dim=-1).clamp_min(_EPS)
+        s = num / den
+    else:
+        s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
+    t = mu_dst - s[..., None] * torch.einsum("...ij,...j->...i", R, mu_src)
+    return s, R, t
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
 """SlamSystem facade — the public API (port of ``orbslam2_tpu.system``,
 synchronous path).
 
-Construction wires the map, the tracker and the local mapper onto one
-``device``; ``track_rgbd``, ``track_stereo`` and ``track_monocular`` track
-a frame and then run local mapping on every keyframe it created, in order.
-Trajectories export in the TUM and KITTI formats. Loop closing (ROADMAP
-queue 1, slice 8), map persistence and relocalization (slice 7) are not in
-this slice.
+Construction wires the map, the keyframe database, the tracker and the
+local mapper onto one ``device``; ``track_rgbd``, ``track_stereo`` and
+``track_monocular`` track a frame, then run local mapping on every keyframe
+it created, in order, and add each keyframe still valid to the database.
+A lost tracker relocalizes against the database. ``save_map`` /
+``load_map`` persist the map and the database (the reference's file
+format); localization mode tracks without growing the map. Trajectories
+export in the TUM and KITTI formats. Loop closing (ROADMAP queue 1, slice
+8) is not in this slice; the reference's loop closer is what adds
+keyframes to the database there.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from .config import SlamConfig
 from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .local_mapping import LocalMapper
+from .map.keyframe_database import KeyFrameDatabase
 from .map.state import MapState
 from .ops import geometry as geo
 from .tracking import Tracker, TrackingState
@@ -32,11 +37,15 @@ class SlamSystem:
                 "loop closing comes with ROADMAP queue 1, slice 8")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.localization_only = False
         self._build()
 
     def _build(self):
         self.map = MapState.allocate(self.cfg, device=self.device)
-        self.tracker = Tracker(self.cfg, self.map, device=self.device)
+        self.kfdb = KeyFrameDatabase(self.map, device=self.device)
+        self.tracker = Tracker(self.cfg, self.map, kfdb=self.kfdb,
+                               device=self.device)
+        self.tracker.localization_only = self.localization_only
         self.local_mapper = LocalMapper(self.cfg, self.map, self.tracker.cam)
 
     # ------------------------------------------------------------------
@@ -63,18 +72,31 @@ class SlamSystem:
             # lost within ~5 keyframes of init: the bootstrap map is junk
             self.reset()
             return pose
-        kfs = self.tracker.pending_keyframes
-        self.tracker.pending_keyframes = []
-        for kf in kfs:
+        for kf in self._drain_keyframes():
             self.local_mapper.process_keyframe(kf)
+            # the reference's loop closer adds the keyframe after mapping
+            if self.map.kf_valid[kf]:
+                self.kfdb.add(kf)
         return pose
+
+    def _drain_keyframes(self):
+        kfs = self.tracker.pending_keyframes
+        if kfs and not self.localization_only:
+            self.tracker.pending_keyframes = []
+            return kfs
+        kfs.clear()
+        return ()
 
     # ------------------------------------------------------------------
     # Modes / lifecycle
     # ------------------------------------------------------------------
     def activate_localization_mode(self):
-        raise NotImplementedError(
-            "localization mode needs relocalization, ROADMAP queue 1, slice 7")
+        self.localization_only = True
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.localization_only = False
 
     @property
     def tracking_state(self) -> TrackingState:
@@ -82,6 +104,31 @@ class SlamSystem:
 
     def reset(self):
         self._build()
+
+    # ------------------------------------------------------------------
+    # Map persistence
+    # ------------------------------------------------------------------
+    def save_map(self, path: str):
+        from .utils.checkpoint import save_map
+
+        save_map(path, self.map, self.kfdb)
+
+    def load_map(self, path: str, localization_only: bool = True):
+        """Load a saved map (and its keyframe database); by default enter
+        localization mode. Tracking is set LOST, so the next frame
+        relocalizes against the loaded map."""
+        from .utils.checkpoint import load_map
+
+        self.map = load_map(path, self.cfg, self.kfdb, device=self.device)
+        self.tracker.map = self.local_mapper.map = self.kfdb.map = self.map
+        # the tracker's local-map cache is keyed on (ref_kf, map.version),
+        # which a new map can repeat
+        self.tracker._local_cache_key = None
+        if localization_only:
+            self.activate_localization_mode()
+        self.tracker.state = TrackingState.LOST
+        kfs = self.map.valid_keyframes()
+        self.tracker.ref_kf = int(kfs[0]) if len(kfs) else -1
 
     # ------------------------------------------------------------------
     # Trajectory export

@@ -17,11 +17,15 @@ SearchForInitialization (kernel U) and bootstraps the map from the
 two-view initializer (kernel X); the reference-keyframe fallback matches
 by kernel U too.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-queue-1 slice): relocalization against a keyframe database and
-localization mode (slice 7), pipelined tracking (slice 9). Without a
-keyframe database a LOST tracker stays lost, as the reference's does with
-``kfdb=None``.
+A LOST tracker relocalizes against the keyframe database: the frame's BoW
+vector (kernel Y), the candidates, a mutual match against each candidate's
+map points (kernel U without the rotation check), EPnP RANSAC over 256
+host-drawn samples (kernel Z), then one or two projection passes (O, C, Q,
+D and the pack, kernel R). Without a keyframe database a LOST tracker stays
+lost, as the reference's does with ``kfdb=None``. In localization mode no
+keyframe is made and a loss resets nothing; the last frame's close depths
+become temporary points of the local map. Pipelined tracking (ROADMAP
+queue 1, slice 9) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from .kernels import cascade_pack as _cascade_pack
 from .kernels import claim_resolve as _claim_resolve
 from .kernels import hamming as _hamming
 from .kernels import match_rot as _match_rot
+from .kernels import pnp_ransac as _pnp_ransac
 from .kernels import pose_lm as _pose_lm
 from .kernels import project_gate as _project_gate
 from .kernels import rgbd_depth as _rgbd_depth
@@ -47,7 +52,7 @@ from .kernels import stereo_sad as _stereo_sad
 from .kernels import two_view as _two_view
 from .map.state import MapState
 from .models.camera import Camera, undistort_points
-from .ops import matching, orb, pose_opt, stereo
+from .ops import matching, orb, pnp, pose_opt, stereo
 from .ops.initializer import N_ITERS
 
 
@@ -105,18 +110,40 @@ _PLAIN = SimpleNamespace(
 
 def project_match(k, cam: Camera, Tcw, mp_pos, mp_desc, mp_valid, mp_normal,
                   mp_dmin, mp_dmax, kp_xy, kp_desc, kp_octave, kp_valid, kp_ur,
-                  radius: float, scale_factor: float, n_levels: int, gate=None):
+                  radius: float, scale_factor: float, n_levels: int, gate=None,
+                  max_dist: int = matching.TH_HIGH, nn_ratio: float = 0.9):
     """One SearchByProjection through the functions of ``k`` (_KERNELS or
     _PLAIN): projection and gates (O), gated Hamming top-2 (C), match gates
-    and claims (Q). Returns (Projection, Claims)."""
+    (``max_dist``, ``nn_ratio``) and claims (Q). Returns (Projection,
+    Claims)."""
     pr = k.project_gate(cam, Tcw, mp_pos, mp_valid, mp_normal, mp_dmin,
                         mp_dmax, radius, scale_factor, n_levels, gate=gate)
     top2 = k.hamming_top2_gated(mp_desc, pr.proj, pr.r_px, pr.pred_level,
                                 pr.ur_pred, pr.row_valid, kp_desc, kp_xy,
                                 kp_octave, kp_valid, kp_ur, gate=gate)
     claims = k.claim_resolve(*top2, pr.row_valid, kp_xy, kp_octave, kp_ur,
-                             scale_factor, matching.TH_HIGH, 0.9, gate=gate)
+                             scale_factor, max_dist, nn_ratio, gate=gate)
     return pr, claims
+
+
+def track_against_points(
+    cam: Camera, Tcw_pred, mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin,
+    mp_dmax, kp_xy, kp_desc, kp_octave, kp_valid, kp_ur, kp_depth,
+    radius: float, scale_factor: float, n_levels: int, max_dist: int,
+    nn_ratio: float,
+) -> torch.Tensor:
+    """One SearchByProjection at ``radius`` with the caller's ``max_dist``
+    and ``nn_ratio``, then the pose LM: kernels O, C, Q, D. The result is
+    packed by kernel R as the cascade's (its one pass given as both of R's
+    candidates, so Tcw, n_final and the per-point codes are the pass's),
+    for one copy to the host."""
+    pr, cl = project_match(_KERNELS, cam, Tcw_pred, mp_pos, mp_desc, mp_valid,
+                           mp_normal, mp_dmin, mp_dmax, kp_xy, kp_desc, kp_octave,
+                           kp_valid, kp_ur, radius, scale_factor, n_levels,
+                           max_dist=max_dist, nn_ratio=nn_ratio)
+    T, inl, n, _ = _pose_lm.pose_lm(Tcw_pred, cam, mp_pos, cl.obs, cl.sigma2, cl.keep)
+    return _cascade_pack.cascade_pack(T, n, inl, cl.kp_of_mp, T, n, inl, cl.kp_of_mp,
+                                      n, pr.row_valid, kp_valid, kp_depth, 0.0)
 
 
 def track_frame_fused(
@@ -174,10 +201,11 @@ def match_frames_windowed(desc_a, xy_a, angle_a, valid_a, desc_b, xy_b,
 # ---------------------------------------------------------------------------
 
 class Tracker:
-    def __init__(self, cfg: SlamConfig, slam_map: MapState,
+    def __init__(self, cfg: SlamConfig, slam_map: MapState, kfdb=None,
                  device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.map = slam_map
+        self.kfdb = kfdb  # keyframe database (relocalization); optional
         self.device = resolve_device(device)
         cc = cfg.camera
         self.cam = Camera.create(
@@ -203,11 +231,13 @@ class Tracker:
         self.trajectory: List[Tuple[int, float, np.ndarray]] = []
         self.metrics: List[dict] = []
         self.reset_requested = False
+        self.localization_only = False  # no keyframes, no map growth
         self.pending_keyframes: List[int] = []
         self.init_ref: Optional[FrameData] = None  # monocular init reference
         self._rng = np.random.default_rng(cfg.runtime.seed)
         self._neg_ones: Optional[torch.Tensor] = None
         self._local_cache_key = None
+        self._local_n_used = 0  # rows of the cached local map holding points
         # per-octave scale of the stereo row gate, as the reference's
         # float32 array of the config's float64 powers
         self._scale_factors = torch.from_numpy(np.asarray(
@@ -305,13 +335,13 @@ class Tracker:
         new_kf = None
         if ok:
             self.state = TrackingState.OK
-            if self._need_new_keyframe(frame):
+            if not self.localization_only and self._need_new_keyframe(frame):
                 new_kf = self._create_keyframe(frame)
         else:
             self.state = TrackingState.LOST
             # lost right after initialization: the bootstrap map is junk,
             # request a full reset instead of relocalizing against it
-            if int(self.map.kf_valid.sum()) <= 5:
+            if not self.localization_only and int(self.map.kf_valid.sum()) <= 5:
                 self.reset_requested = True
         return new_kf
 
@@ -481,6 +511,49 @@ class Tracker:
         )
         self._local_cache_key = key
         self._local_cache = (sel, buf)
+        self._local_n_used = len(mp_ids)
+        return sel, buf
+
+    def _augment_vo_points(self, sel: np.ndarray, buf: dict):
+        """Localization-mode visual-odometry points (UpdateLastFrame): the
+        last frame's close unmatched depths, unprojected into TEMPORARY
+        points in the free tail of a copy of the local buffer (sel -1, never
+        committed to the map), so tracking survives where the saved map is
+        sparse."""
+        lf = self.last_frame
+        if (lf is None or lf.Tcw is None or not (lf.depth > 0).any()):
+            return sel, buf
+        free = self.local_point_cap - self._local_n_used
+        if free <= 0:
+            return sel, buf
+        cand = np.where(lf.valid & (lf.depth > 0) & (lf.mp < 0))[0]
+        if len(cand) == 0:
+            return sel, buf
+        th_depth = self.cfg.camera.th_depth * self._baseline
+        order = cand[np.argsort(lf.depth[cand])]
+        close = order[lf.depth[order] < th_depth]
+        # the close points, or the nearest 100 when the scene is all far
+        spawn = (close if len(close) >= 100 else order[:100])[:free]
+        Twc = np.linalg.inv(lf.Tcw)
+        fx, fy, cx, cy = self._fx, self._fy, self._cx, self._cy
+        d = lf.depth[spawn][:, None]
+        pc = np.concatenate(
+            [(lf.xy[spawn, :1] - cx) / fx * d,
+             (lf.xy[spawn, 1:2] - cy) / fy * d, d], axis=1).astype(np.float32)
+        pw = pc @ Twc[:3, :3].T + Twc[:3, 3]
+        center = Twc[:3, 3]
+        dist = np.linalg.norm(pw - center, axis=1)
+        normal = (pw - center) / np.maximum(dist, 1e-9)[:, None]
+        rows = np.arange(self._local_n_used, self._local_n_used + len(spawn))
+        new = dict(pos=pw, desc=lf.desc[spawn], valid=np.ones(len(spawn), bool),
+                   normal=normal, dmin=dist / 2.0, dmax=dist * 2.0)
+        # a copy: the cached buffer serves the next frame unchanged
+        idx = torch.from_numpy(rows).to(self.device)
+        buf = {k: v.index_copy(0, idx, torch.from_numpy(
+            np.ascontiguousarray(new[k])).to(self.device, v.dtype))
+            for k, v in buf.items()}
+        sel = sel.copy()
+        sel[rows] = -1
         return sel, buf
 
     def _run_fused(self, frame: FrameData, Tcw_pred: np.ndarray, buf: dict,
@@ -497,18 +570,20 @@ class Tracker:
             self.cfg.tracking.min_inliers_track,
         )
 
+    @staticmethod
+    def _decode(packed):
+        """Split a packed result of kernel R (one D2H copy): Tcw, n_motion,
+        n_final, the close-point census, inliers, kp_of_mp, frustum."""
+        p = packed.cpu().numpy()
+        code = p[20:].astype(np.int32)
+        return (p[:16].reshape(4, 4).astype(np.float32), int(p[16]), int(p[17]),
+                (int(p[18]), int(p[19])), (code & 2) > 0, (code >> 2) - 1,
+                (code & 1) > 0)
+
     def _unpack_fused(self, packed):
         """Split the packed cascade result (the frame's single D2H copy)."""
-        p = packed.cpu().numpy()
-        Tcw = p[:16].reshape(4, 4).astype(np.float32)
-        n_motion = int(p[16])
-        n_final = int(p[17])
-        self.n_tracked_close = int(p[18])
-        self.n_untracked_close = int(p[19])
-        code = p[20:].astype(np.int32)
-        kp_of_mp = (code >> 2) - 1
-        inl = (code & 2) > 0
-        frustum = (code & 1) > 0
+        Tcw, n_motion, n_final, census, inl, kp_of_mp, frustum = self._decode(packed)
+        self.n_tracked_close, self.n_untracked_close = census
         return Tcw, n_motion, n_final, inl, kp_of_mp, frustum
 
     def _dispatch_track(self, frame: FrameData):
@@ -516,6 +591,8 @@ class Tracker:
         (falling back to the last pose at twice the radius)."""
         m = self.map
         sel, buf = self._gather_local_points()
+        if self.localization_only:
+            sel, buf = self._augment_vo_points(sel, buf)
         if self.velocity is not None and self.last_frame.Tcw is not None:
             Tcw_pred = self.velocity @ self.last_frame.Tcw
             radius = self.cfg.tracking.motion_model_radius
@@ -618,10 +695,81 @@ class Tracker:
                            frustum)
         return True
 
+    # ------------------------------------------------------------------
+    # Relocalization (Tracking::Relocalization)
+    # ------------------------------------------------------------------
     def _relocalize(self, frame: FrameData) -> bool:
-        # no keyframe database before ROADMAP queue 1, slice 7: a lost
-        # tracker stays lost, as the reference's does without one
+        """BoW candidates from the keyframe database (kernel Y); for each, a
+        mutual match of the frame against the candidate's map points (kernel
+        U, TH_LOW, ratio 0.75, no rotation check), EPnP RANSAC over 256
+        samples drawn on the host (kernel Z), then a radius-10 projection
+        pass from its pose and, when the count lands in the almost-enough
+        band, a radius-3 pass with max_dist 64 (kernels O, C, Q, D, R)."""
+        if self.kfdb is None:
+            return False
+        m = self.map
+        dev = self.device
+        qbow = self.kfdb.compute_bow(frame.dev["desc"], frame.dev["valid"])
+        for cand in self.kfdb.detect_relocalization_candidates(qbow):
+            has = m.kf_feat_valid[cand] & (m.kf_mp[cand] >= 0)
+            res = _match_rot.match_rot(
+                frame.dev["desc"], torch.from_numpy(m.kf_desc[cand]).to(dev),
+                frame.dev["valid"], torch.from_numpy(has).to(dev), None, None,
+                matching.TH_LOW, 0.75, check_rotation=False)
+            rv = res.valid.cpu().numpy()
+            if rv.sum() < 15:
+                continue
+            fidx = np.where(rv)[0]
+            mps = m.kf_mp[cand, res.idx.cpu().numpy()[fidx]]
+            live = m.mp_valid[mps]
+            fidx, mps = fidx[live], mps[live]
+            if len(fidx) < 15:
+                continue
+            N = len(fidx)
+            sf = self.cfg.extractor.scale_factor
+            samples = self._rng.integers(0, N, size=(256, pnp.SAMPLE_SIZE)).astype(np.int32)
+
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+            pr = _pnp_ransac.unpack(_pnp_ransac.pnp_ransac(
+                self.cam, t(m.mp_pos[mps]), t(frame.xy[fidx].astype(np.float32)),
+                t(sf ** (2.0 * frame.octave[fidx].astype(np.float32))),
+                torch.ones(N, dtype=torch.bool, device=dev), t(samples),
+            ).cpu().numpy(), N)
+            if not pr.ok:
+                continue
+            self.ref_kf = cand
+            sel, buf = self._gather_local_points()
+            Tcw, n_inl, inl, kp_of_mp = self._project_pass(frame, pr.Tcw, buf, 10.0,
+                                                           matching.TH_HIGH)
+            required = self.cfg.tracking.min_inliers_after_reloc
+            if 30 <= n_inl < required:
+                Tcw, n_inl, inl, kp_of_mp = self._project_pass(frame, Tcw, buf, 3.0, 64)
+            if n_inl < required:
+                continue
+            frame.Tcw = Tcw
+            frame.mp[:] = -1
+            rows = np.where(inl)[0]
+            frame.mp[kp_of_mp[rows]] = sel[rows]
+            self.n_inliers_last = n_inl
+            return True
         return False
+
+    def _project_pass(self, frame: FrameData, Tcw: np.ndarray, buf: dict,
+                      radius: float, max_dist: int):
+        """One track_against_points pass at ratio 0.9: (Tcw, n_inliers,
+        inliers, kp_of_mp), from one copy to the host."""
+        cfge = self.cfg.extractor
+        packed = track_against_points(
+            self.cam, torch.from_numpy(np.asarray(Tcw, np.float32)).to(self.device),
+            buf["pos"], buf["desc"], buf["valid"], buf["normal"], buf["dmin"],
+            buf["dmax"], frame.dev["xy"], frame.dev["desc"], frame.dev["octave"],
+            frame.dev["valid"], frame.dev["ur"], frame.dev["depth"],
+            self._f32(radius), self._f32(cfge.scale_factor), cfge.n_levels,
+            max_dist, 0.9)
+        T, _, n_final, _, inl, kp_of_mp, _ = self._decode(packed)
+        return T, n_final, inl, kp_of_mp
 
     # ------------------------------------------------------------------
     # Keyframe policy (Tracking::NeedNewKeyFrame)
@@ -664,6 +812,9 @@ class Tracker:
             frame.angle, frame.valid, frame.frame_id, frame.timestamp,
             ur=frame.ur, depth=frame.depth,
         )
+        if self.kfdb is not None and kf < len(self.kfdb.in_db):
+            # a recycled slot must not surface the culled keyframe's BoW row
+            self.kfdb.erase(kf)
         feats = np.where(frame.mp >= 0)[0]
         m.add_observations_batch(frame.mp[feats], kf, feats)
         if (frame.depth > 0).any():

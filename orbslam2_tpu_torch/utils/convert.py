@@ -1,8 +1,8 @@
 """Interop with the JAX reference package, through numpy only.
 
-The tests hand both packages the same camera, map and frame: the JAX
-package's state is read out as numpy arrays (``np.asarray`` of each field)
-and converted here. Nothing in this module imports JAX or the JAX package;
+The tests hand both packages the same camera, map, keyframe database and
+frame: the JAX package's state is read out as numpy arrays (``np.asarray``
+of each field) and converted here. Nothing in this module imports JAX or the JAX package;
 the BRIEF test pattern is the port's own copy of the reference's trained
 asset (``orbslam2_tpu_torch/assets/brief_pattern.npz``).
 """
@@ -17,6 +17,7 @@ import numpy as np
 
 from ..config import SlamConfig
 from ..device import DEFAULT as DEFAULT_DEVICE
+from ..map.keyframe_database import KeyFrameDatabase
 from ..map.state import MapState
 from ..models.camera import Camera
 
@@ -59,3 +60,17 @@ def map_state_from_numpy(cfg: SlamConfig, d: dict,
             setattr(m, name, type(cur)(value))
     m.dev_kf.invalidate()
     return m
+
+
+def keyframe_database_from_numpy(m: MapState, d: dict,
+                                 device=DEFAULT_DEVICE) -> KeyFrameDatabase:
+    """A KeyFrameDatabase over ``m`` holding copies of the reference
+    database's arrays in ``d``: ``bow_mat`` (K, W) float16, ``in_db`` (K,),
+    ``vocab`` (W, 256) bits and ``idf`` (W,) or None."""
+    idf = d.get("idf")
+    kfdb = KeyFrameDatabase(m, vocab_bits=np.array(d["vocab"], np.uint8),
+                            idf=None if idf is None else np.array(idf, np.float32),
+                            device=device)
+    kfdb.bow_mat = np.array(d["bow_mat"], np.float16)
+    kfdb.in_db = np.array(d["in_db"], bool)
+    return kfdb

@@ -1,7 +1,7 @@
 """Where the time goes in a slice on one GPU.
 
     python -m orbslam2_tpu_torch.utils.profile_slice [--sensor rgbd]
-        [--frames 36] [--reps 2]
+        [--frames 36] [--reps 2] [--reloc]
 
 Runs ``SlamSystem`` in the sensor's configuration of ``utils/slices.py``
 (rgbd: 640x480, 1000 features, 8 levels; stereo: KITTI 1241x376, 2000
@@ -20,6 +20,12 @@ device's busy share (the time of CUDA kernel, memset and memcpy events
 only, over the window's wall time, which the profiler's own host overhead
 lengthens), the device events per frame, and the kernels with the most
 device time. Needs a CUDA device.
+
+``--reloc`` (RGB-D) maps the frames once, then each rep feeds 3 blank
+frames (LOST) and the revisited views 10-19 until the tracker
+relocalizes, with the relocalization's stages timed (BoW query on kernel
+Y, database, kernel U, kernel Z, the projection passes); a last rep is
+profiled and split into device busy and host time as above.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import bisect
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..system import SlamSystem
@@ -97,13 +104,95 @@ def stage_split(prof) -> dict:
     return out
 
 
+RELOC_STAGES = (("kfdb", "compute_bow", "bow"),
+                ("kfdb", "detect_relocalization_candidates", "database"),
+                ("tracker", "_project_pass", "passes"),
+                ("tracker", "_relocalize", "relocalize"))
+
+
+def reloc_profile(cfg, frames, dev, reps: int):
+    """The --reloc run: see the module's docstring."""
+    from ..kernels import match_rot, pnp_ransac
+
+    slam = SlamSystem(cfg, device=dev)
+    for i, frame in enumerate(frames):
+        slices.track(slam, "rgbd", frame, i / 30.0)
+    print(f"mapped {len(frames)} frames: {len(slam.map.valid_keyframes())} "
+          f"keyframes, {int(slam.kfdb.in_db.sum())} in the database")
+    acc, state = {}, {"mark": False}
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if state["mark"]:
+                with torch.profiler.record_function("stage:" + key):
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+            else:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, name, wrapper)
+
+    for owner, name, key in RELOC_STAGES:
+        wrap(getattr(slam, owner), name, key)
+    wrap(match_rot, "match_rot", "U")
+    wrap(pnp_ransac, "pnp_ransac", "Z")
+    h, w = frames[0][0].shape
+    blank = np.zeros((h, w), np.float32)
+    ts = 1000.0
+    split = None
+    for rep in range(reps + 1):
+        profiled = rep == reps
+        for _ in range(3):
+            slices.track(slam, "rgbd", (blank, blank), ts)
+            ts += 1.0
+        acc.clear()
+        state["mark"] = profiled
+        prof = None
+        if profiled:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t1 = time.perf_counter()
+        for n, i in enumerate(range(10, 20), 1):
+            pose = slices.track(slam, "rgbd", frames[i], ts)
+            ts += 1.0
+            torch.cuda.synchronize()
+            if pose is not None:
+                break
+        wall = time.perf_counter() - t1
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            split = stage_split(prof)
+        print(f"rep {rep}{' (profiled)' if profiled else ''}: relocalized "
+              f"{pose is not None} after {n} frames, {wall * 1e3:.2f} ms "
+              f"(reference keyframe {slam.tracker.ref_kf})")
+        for key, v in sorted(acc.items(), key=lambda kv: -kv[1]):
+            print(f"  {key:12s} {v * 1e3:9.2f} ms")
+    print("stage split of the profiled rep: calls, wall ms, device busy ms, "
+          "host ms (wall - busy)")
+    for key, (n, wall, busy) in sorted(split.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {key:12s} {n:4d} {wall:9.2f} {busy:9.2f} {wall - busy:9.2f}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sensor", choices=slices.SENSORS, default="rgbd")
     ap.add_argument("--frames", type=int, default=0,
                     help="frames (default: the sensor's count in utils/slices.py)")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--reloc", action="store_true",
+                    help="time relocalization on the mapped RGB-D frames")
     args = ap.parse_args()
+    if args.reloc and args.sensor != "rgbd":
+        raise SystemExit("profile_slice: --reloc runs on the rgbd sensor")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
     card = subprocess.run(
@@ -113,6 +202,9 @@ def main():
     cfg = slices.config(args.sensor)
     frames, _ = slices.frames(args.sensor, cfg, args.frames)
     dev = torch.device("cuda")
+    if args.reloc:
+        reloc_profile(cfg, frames, dev, args.reps)
+        return
     split = None
     for rep in range(args.reps + 2):
         profiled = rep >= args.reps

@@ -790,3 +790,174 @@ def test_slice6_kernels_refuse(cuda):
         two_view.two_view(z(8193, 2), z(8193, 2), ok, K_, samples)
     with pytest.raises(ValueError, match="samples"):
         two_view.two_view(z(16, 2), z(16, 2), ok[:16], K_, samples[:100])
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: kernels Y, Z and U without the rotation check; the gates whose
+# reference runs are too long for the CPU suite
+# ---------------------------------------------------------------------------
+
+def test_bow_words_matches_plain(cuda):
+    """Kernel Y on a 640x480 frame's features against the shipped 65536-word
+    vocabulary with IDF, and against a vocabulary whose halves repeat (every
+    nearest word tied): words bit-exact, the vector within 1e-6 relative."""
+    from orbslam2_tpu_torch.kernels import bow_words
+    from orbslam2_tpu_torch.ops import bow
+
+    _, _, f = _sensor_features(cuda, "rgbd", 0)
+    bits, idf = bow.default_vocabulary()
+    half = bits[:2048]
+    for vb, w in ((bits, idf), (np.concatenate([half, half]), None)):
+        vocab = torch.from_numpy(bow.pack_vocabulary(vb)).to(cuda)
+        idf_t = None if w is None else torch.from_numpy(w).to(cuda)
+        wk, vk = bow_words.bow_words(f.desc, f.valid, vocab, idf_t)
+        wp, vp = bow_words.bow_words_plain(f.desc, f.valid, vocab, idf_t)
+        assert torch.equal(wk, wp)
+        nz = vp != 0
+        assert torch.equal(nz, vk != 0)
+        assert ((vk - vp).abs()[nz] / vp[nz].abs()).max().item() <= 1e-6
+        assert int(f.valid.sum()) > 500
+
+
+def test_pnp_ransac_matches_plain(cuda):
+    """Kernel Z on 1000 correspondences with 30% outliers and 0.5 px noise,
+    256 samples: ok equal, inliers >= 99% equal, rotation within 1e-3 rad,
+    translation within 1e-3 m of the plain version; no outlier kept."""
+    from orbslam2_tpu_torch.kernels import pnp_ransac
+
+    rng = np.random.default_rng(0)
+    n = 1000
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    rng.uniform(2, 8, n)], 1).astype(np.float32)
+    t = np.array([0.1, -0.05, 0.2], np.float32)
+    pw = pts - t
+    uv = (520.0 * pts[:, :2] / pts[:, 2:3] + [320.0, 240.0]
+          + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    n_out = int(0.3 * n)
+    uv[:n_out] += rng.uniform(40, 120, (n_out, 2)).astype(np.float32)
+    sigma2 = (1.2 ** (2 * rng.integers(0, 8, n))).astype(np.float32)
+    samples = rng.integers(0, n, (256, 4)).astype(np.int32)
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0)
+    args = (cam,) + tuple(torch.from_numpy(a).to(cuda) for a in (
+        pw, uv, sigma2, np.ones(n, bool), samples))
+    rk = pnp_ransac.unpack(pnp_ransac.pnp_ransac(*args).cpu().numpy(), n)
+    rp = pnp_ransac.unpack(pnp_ransac.pnp_ransac_plain(*args).cpu().numpy(), n)
+    assert rk.ok and rp.ok
+    assert (rk.inliers == rp.inliers).mean() >= 0.99
+    assert rk.inliers[:n_out].sum() == 0
+    chord = np.linalg.norm(rk.Tcw[:3, :3].astype(np.float64) - rp.Tcw[:3, :3])
+    assert 2.0 * np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)) < 1e-3
+    assert np.abs(rk.Tcw[:3, 3] - rp.Tcw[:3, 3]).max() < 1e-3
+    assert np.abs(rk.Tcw[:3, 3] - t).max() < 1e-2
+
+
+def test_match_without_rotation_check_bit_exact(cuda):
+    """Kernel U with check_rotation=False (relocalization: TH_LOW, ratio
+    0.75, no angles) bit-exact at 640x480 frames 0 and 10."""
+    from orbslam2_tpu_torch.kernels import match_rot
+
+    _, _, fa = _sensor_features(cuda, "rgbd", 0)
+    _, _, fb = _sensor_features(cuda, "rgbd", 10)
+    args = (fa.desc, fb.desc, fa.valid, fb.valid, None, None, 50, 0.75)
+    rk = match_rot.match_rot(*args, check_rotation=False)
+    rp = match_rot.match_rot_plain(*args, check_rotation=False)
+    for a, b in zip(rk, rp):
+        assert torch.equal(a, b)
+    assert rk.valid.sum() > 100
+
+
+def test_slice7_kernels_refuse(cuda):
+    """Kernels Y and Z raise on what they do not take."""
+    from orbslam2_tpu_torch.kernels import bow_words, pnp_ransac
+
+    desc = torch.zeros((16, 32), dtype=torch.uint8, device=cuda)
+    ok = torch.ones(16, dtype=torch.bool, device=cuda)
+    vocab = torch.zeros((64, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="idf"):
+        bow_words.bow_words(desc, ok, vocab, torch.zeros(63, device=cuda))
+    with pytest.raises(ValueError, match="vocab"):
+        bow_words.bow_words(desc, ok, vocab.cpu())
+    cam = Camera.create(520.0, 520.0, 320.0, 240.0)
+    pts = torch.zeros((16, 3), device=cuda)
+    with pytest.raises(ValueError, match="samples"):
+        pnp_ransac.pnp_ransac(cam, pts, torch.zeros((16, 2), device=cuda),
+                              torch.ones(16, device=cuda), ok,
+                              torch.zeros((8, 3), dtype=torch.int32, device=cuda))
+
+
+def _robustness_cfg(sensor="rgbd"):
+    return SlamConfig(
+        sensor=sensor,
+        camera=CameraConfig(fx=260, fy=260, cx=160, cy=120, width=320,
+                            height=240, bf=26.0 if sensor != "monocular" else 0.0,
+                            fps=30),
+        extractor=ExtractorConfig(n_features=500, n_levels=4))
+
+
+def test_jerky_motion(cuda):
+    """tests/test_tracking_robustness.py::TestJerkyMotion on the card (80
+    frames, too long for the CPU suite): the reference-keyframe fallback
+    (kernel U) holds tracking where the motion model breaks every 20
+    frames. The reference's data and assertions unchanged."""
+    from orbslam2_tpu_torch.system import SlamSystem
+
+    poses = orbit_trajectory(80)
+    traj = []
+    offset = np.zeros(3, np.float32)
+    for i, Tcw in enumerate(poses):
+        if i > 0 and i % 20 == 0:
+            offset = offset + np.array([0.12 * (-1) ** (i // 20), 0.0, -0.06], np.float32)
+        Twc = np.linalg.inv(Tcw.copy())
+        Twc[:3, 3] += offset
+        traj.append(np.linalg.inv(Twc).astype(np.float32))
+    frames, poses = render_sequence(80, K, width=W, height=H, with_depth=True,
+                                    trajectory=traj)
+    slam = SlamSystem(_robustness_cfg(), device=cuda)
+    tracked = 0
+    errs = []
+    for i, ((img, depth), T_true) in enumerate(zip(frames, poses)):
+        pose = slam.track_rgbd(img, depth, i / 30.0)
+        if pose is not None:
+            tracked += 1
+            C_est = np.linalg.inv(pose)[:3, 3]
+            C_gt = (poses[0] @ np.linalg.inv(T_true))[:3, 3]
+            errs.append(np.linalg.norm(C_est - C_gt))
+    assert tracked >= 76, tracked  # at most one-per-jerk hiccup
+    assert np.median(errs) < 0.08, np.median(errs)
+
+
+def test_mono_long_sequence_drift_bounded(cuda):
+    """tests/test_mono_long.py on the card (120 frames): initialised within
+    ~30 frames, never lost after, ATE with scale < 0.08 m. The reference's
+    data and assertions unchanged."""
+    from orbslam2_tpu_torch.system import SlamSystem
+    from orbslam2_tpu_torch.utils.evaluation import ate_rmse
+
+    planes = make_box_room(seed=1)
+    N = 120
+    poses = []
+    for i in range(N):
+        yaw = 0.3 * np.sin(0.02 * i)
+        C = np.array([0.8 * np.sin(0.05 * i), 0.1 * np.sin(0.03 * i),
+                      -1.8 + 0.015 * i], np.float32)
+        Ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                       [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+        pitch = 0.25
+        Rx = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)],
+                       [0, np.sin(pitch), np.cos(pitch)]], np.float32)
+        Rwc = Ry @ Rx
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rwc.T
+        T[:3, 3] = -Rwc.T @ C
+        poses.append(T)
+    frames = [render(planes, K, T, 320, 240) for T in poses]
+    slam = SlamSystem(_robustness_cfg("monocular"), device=cuda)
+    est, gt = [], []
+    for i, (img, T_true) in enumerate(zip(frames, poses)):
+        pose = slam.track_monocular(img, i / 30.0)
+        if pose is not None:
+            est.append(np.linalg.inv(pose)[:3, 3])
+            gt.append(np.linalg.inv(T_true)[:3, 3])
+    assert len(est) >= N - 45, len(est)
+    err = ate_rmse(np.array(est), np.array(gt), with_scale=True)
+    assert err < 0.08, err

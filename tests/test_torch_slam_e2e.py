@@ -104,8 +104,9 @@ class TestRgbdPipeline:
         slam = SlamSystem(_cfg(), device="cpu")
         with pytest.raises(NotImplementedError, match="slice 9"):
             slam.tracker.track_pipelined(None, 0.0)
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            slam.activate_localization_mode()
+        # localization mode is ported (slice 7): it switches the tracker
+        slam.activate_localization_mode()
+        assert slam.tracker.localization_only
 
 
 def test_slice_parity_with_reference(rgbd_sequence):

@@ -61,13 +61,28 @@ Phases, each printing one line:
      names; then U (N=2048 at the fallback, N=1024 windowed), V and W
      (N=2048, 376x1241; W on the frame quantized to 8 bits, and within
      1e-3 px on the float render) bit-exact and X (N=1024) within tolerance
-     against their plain versions on the arguments the paths gave them.
-Then the kernels as one JSON line (times, launches summed over the paths,
+     against their plain versions on the arguments the paths gave them;
+  7. the loop path: the reference's circuit (utils/slices.circuit: 240
+     RGB-D frames at 320x240, 600 features, a 1.25-lap orbit in the 10 m
+     box room) through SlamSystem with loop closing on by default, at the
+     reference test's bounds (a loop closes; keyframe ATE peak > 0.015 m
+     before it, after it < 0.7 x the peak and < 0.05 m), launching exactly
+     the kernels of PATHS["loop"]; a "loop" line with the closing frame,
+     the keyframe pair, the U matches, RANSAC, refined and total matches,
+     the ms of each synchronised stage of the closure and the GBA's K, M and
+     iterations; K, M's search (bit-exact) and LM, P, F' and C's
+     octave-window variant (bit-exact) against their plain versions on the
+     arguments the path gave them.
+Phase 3 also holds the BA schedule at the largest global-BA bucket (K=256,
+M=32768, O=8, kernel F' solving), F' beside the library's Cholesky solve
+at 6K=1536, and P on a drifted 384-keyframe ring against its plain
+version. Then the kernels as one JSON line (times, launches summed over the paths,
 the bound from this run's inputs), the card again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -93,6 +108,10 @@ RELOC_ERR = 0.15       # m, camera centre after relocalizing
 LOC_FRAMES = 15        # localization frames after load_map
 LOC_TRACKED = 10       # of them tracked
 LOC_MEDIAN = 0.1       # m, median camera-centre error
+# the reference loop test's bounds (tests/test_loop_e2e.py)
+LOOP_PEAK_ATE = 0.015  # m: the circuit drifted at all
+LOOP_GAIN = 0.7        # post ATE < LOOP_GAIN x the peak
+LOOP_POST_ATE = 0.05   # m
 
 # the kernels (NAME) each path must launch
 FRONT = ("pyramid_level", "fast_score_nms", "orb_select", "orb_describe")
@@ -108,6 +127,11 @@ PATHS = {
     + ("bow_words",),
     "mono": FRONT + ("match_rot", "two_view") + CASCADE + MAPPING + ("bow_words",),
     "fallback": ("match_rot",) + CASCADE,
+    # exactly these: the circuit, its mapping, and one loop closure with GBA
+    # at K > 64 (F')
+    "loop": FRONT + ("rgbd_depth",) + CASCADE + MAPPING
+    + ("bow_words", "match_rot", "sim3_ransac", "sim3_search", "sim3_opt",
+       "pose_graph", "ba_solve_blocked"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores; every kernel here is float32 or
@@ -732,6 +756,7 @@ def ba_rows(dev, record):
                                         prob.obs_kf, prob.obs_uvr, prob.obs_sigma2,
                                         prob.obs_valid, lam, True)
         f_lib = library_solve(lin, prob, lam)
+        f_name = "F" if K <= ba_solve.MAX_SINGLE_K else "F'"
         f_ms = cuda_ms(lambda: ba_solve.ba_solve(lin.S, lin.b_S, prob.opt_mask, lam,
                                                  prob.poses))
         print(f"ba K={K} M={M} O=8 iters={iters}+outlier round: kernels "
@@ -740,8 +765,8 @@ def ba_rows(dev, record):
               f"{got['points']:.2e} ({got['points_all']:.2e} with the "
               f"{got['loose']} loose ones), reprojection {got['reproj']:.2e} "
               f"px, inlier flips {got['flips']:.1e}, cost "
-              f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}; kernel F "
-              f"{f_ms:.4f} ms vs library Cholesky solve {f_lib:.4f} ms "
+              f"{rk.cost.item():.3f} vs {rp.cost.item():.3f}; kernel "
+              f"{f_name} {f_ms:.4f} ms vs library Cholesky solve {f_lib:.4f} ms "
               f"(6K={6 * K})")
 
 
@@ -1533,6 +1558,338 @@ def port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args):
            library_ms=lib_x, per_call=4)
 
 
+def blocked_rows(dev, record):
+    """Kernel F' against its plain version (the same 32-column panels) and
+    the library's Cholesky solve on the first LM system of the largest
+    global-BA bucket (K=256, M=32768, O=8: 6K = 1536); kernel P on a drifted
+    ring at the dense limit, K = 384 (7K = 2688)."""
+    from orbslam2_tpu_torch.kernels import (ba_linearize, ba_solve,
+                                            ba_solve_blocked, pose_graph)
+    from orbslam2_tpu_torch.models.camera import Camera
+    from orbslam2_tpu_torch.ops import ba
+    from orbslam2_tpu_torch.utils.synthetic import ba_window, pose_graph_ring
+
+    cam = Camera.create(FX, FX, W / 2, H / 2, bf=52.0, width=W, height=H)
+    K, M = 256, 32768
+    prob = ba.BAProblem(*(torch.from_numpy(a).to(dev)
+                          for a in ba_window(K, M, 8, seed=K)))
+    lam = torch.full((1,), 1e-4, device=dev)
+    lin = ba_linearize.ba_linearize(cam, prob.poses, prob.points, prob.point_valid,
+                                    prob.obs_kf, prob.obs_uvr, prob.obs_sigma2,
+                                    prob.obs_valid, lam, True)
+    f_args = (lin.S, lin.b_S, prob.opt_mask, lam, prob.poses)
+    dk, pk = ba_solve_blocked.ba_solve_blocked(*f_args)
+    dp, pp = ba_solve_blocked.ba_solve_blocked_plain(*f_args)
+    err = (pk - pp).abs().max().item()
+    check(err <= 1e-4, f"kernel F' trial poses differ by {err} > 1e-4")
+    Sd, b_S, _ = ba_solve.damped_system(lin.S, lin.b_S, prob.opt_mask, lam)
+    n = 6 * K
+    record(ba_solve_blocked, err, lambda: ba_solve_blocked.ba_solve_blocked(*f_args),
+           cuda_ms(lambda: ba_solve_blocked.ba_solve_blocked_plain(*f_args), reps=5),
+           f"6K={n} (K={K}, M={M}); trial poses max diff {err:.2e}, steps max "
+           f"diff {(dk - dp).abs().max().item():.2e}; "
+           f"{ba_solve_blocked.launches_per_solve(n) + 2} launches; library: "
+           f"torch.linalg.cholesky + torch.cholesky_solve of the damped system",
+           library_ms=cuda_ms(lambda: torch.cholesky_solve(
+               b_S[:, None], torch.linalg.cholesky(Sd))),
+           # S, b_S, masks and poses read once, steps and poses written;
+           # n^3/3 multiply-adds of the factorization, two triangular
+           # solves, the damping, ~200 ops per camera for se3_exp(dc) @ T
+           n_bytes=nbytes(*f_args, dk, pk),
+           n_ops=2 * n ** 3 // 3 + 2 * n * n + n * n + 200 * K,
+           per_call=ba_solve_blocked.launches_per_solve(n) + 2)
+
+    # P at the dense limit, against the plain version
+    from orbslam2_tpu_torch.ops.pose_graph import DENSE_MAX_K
+
+    args, _ = pose_graph_ring(DENSE_MAX_K)
+    args = [a.to(dev) for a in args]
+    rk = pose_graph.optimize_pose_graph(*args, fix_scale=True)
+    rp = pose_graph.optimize_pose_graph_plain(*args, fix_scale=True)
+    err_c, err_r = pose_diff(rk.poses, rp.poses, args[2])
+    check(err_c <= 1e-3 and err_r <= 1e-3,
+          f"kernel P at K=384: centres {err_c} m, rotations {err_r} rad")
+    n = 7 * args[0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(1)
+    B = torch.randn(n, n, device=dev, generator=g)
+    A = B @ B.T / n + torch.eye(n, device=dev)
+    rhs = torch.randn(n, 1, device=dev, generator=g)
+    ms_k = cuda_ms(lambda: pose_graph.optimize_pose_graph(*args, fix_scale=True),
+                   reps=3, warmup=1)
+    ms_p = cuda_ms(lambda: pose_graph.optimize_pose_graph_plain(
+        *args, fix_scale=True), reps=3, warmup=1)
+    ms_l = cuda_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(A)))
+    print(f"kernel pose_graph at the dense limit (K={DENSE_MAX_K}, E="
+          f"{args[3].shape[0]}, 20 iterations): centres max diff {err_c:.2e} m, "
+          f"rotations {err_r:.2e} rad; {ms_k:.3f} ms a call vs plain "
+          f"{ms_p:.3f} ms; library Cholesky solve of one n={n} system "
+          f"{ms_l:.4f} ms")
+
+
+
+
+
+def loop_path(dev):
+    """The reference's loop circuit (utils/slices.circuit: 240 RGB-D frames,
+    320x240, 600 features, a 1.25-lap orbit in the 10 m box room) through
+    SlamSystem(cfg, device=cuda), loop closing on by default, to the
+    reference's four bounds. Launch counts are set to 0 just before and
+    read just after; each stage of the closing keyframe's loop closure is
+    synchronised and timed. Returns (counts, the captured arguments of the
+    loop's kernels, the "loop" line's fields)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import (ba_solve_blocked, hamming,
+                                            pose_graph, sim3_opt, sim3_ransac,
+                                            sim3_search)
+    from orbslam2_tpu_torch.system import SlamSystem
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.profile_slice import LOOP_STAGES
+
+    frames, poses = slices.circuit()
+    slam = SlamSystem(slices.config("circuit"), device=dev)
+    closer = slam.loop_closer
+    owners = dict(closer=closer, sim3_ransac=sim3_ransac,
+                  sim3_search=sim3_search, sim3_opt=sim3_opt)
+    acc = defaultdict(float)
+    closure = {}
+    process = closer.process_keyframe
+
+    def timed_process(kf, *a, **k):
+        acc.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        closed = process(kf, *a, **k)
+        torch.cuda.synchronize()
+        if closed and not closure:
+            closure.update(ms={key: 1e3 * v for key, v in acc.items()},
+                           stats=dict(closer.last_stats))
+            closure["ms"]["total"] = 1e3 * (time.perf_counter() - t)
+        return closed
+
+    closer.process_keyframe = timed_process
+    variant_calls = []
+
+    def no_window(a, k):
+        """C's loop variant (no octave window); counts its launches"""
+        hit = k.get("octave_window", (-1, 0)) is None
+        variant_calls.extend([1] if hit else [])
+        return hit
+
+    peak, first_close, times = 0.0, None, []
+    kernels.reset_launches()
+    with contextlib.ExitStack() as stack:
+        caps = {name: stack.enter_context(Capture(mod, fn, when)) for name, mod, fn, when in (
+            ("K", sim3_ransac, "sim3_ransac", None),
+            ("M_search", sim3_search, "search_by_sim3", None),
+            ("M_opt", sim3_opt, "optimize_sim3", None),
+            ("C", hamming, "hamming_top2_gated", no_window),
+            ("P", pose_graph, "optimize_pose_graph", None),
+            ("F'", ba_solve_blocked, "ba_solve_blocked", None),
+            ("gba", closer, "_gba_solve", None))}
+        for owner, name, key in LOOP_STAGES:
+            stack.enter_context(Stopwatch(acc, key, owners[owner], name))
+        for i, (img, depth) in enumerate(frames):
+            t1 = time.perf_counter()
+            slam.track_rgbd(img, depth, i / 30.0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            if closer.loops_closed == 0:
+                a = slices.keyframe_ate(slam, poses)
+                if a is not None:
+                    peak = max(peak, a)
+            elif first_close is None:
+                first_close = i
+    counts = kernels.launch_counts()
+    post = slices.keyframe_ate(slam, poses)
+    n_kf = len(slam.map.valid_keyframes())
+    path_line("loop", times, counts)
+    print(f"loop circuit (320x240, 600 features, {len(frames)} frames): "
+          f"{closer.loops_closed} loops closed, {n_kf} keyframes, keyframe ATE "
+          f"peak {peak:.5f} m before the loop, {post:.5f} m after")
+    check(closer.loops_closed >= 1, "loop: no loop closed over the circuit")
+    check(peak > LOOP_PEAK_ATE, f"loop: circuit accumulated no drift ({peak})")
+    check(post < LOOP_GAIN * peak, f"loop: ATE {post} not < {LOOP_GAIN} x {peak}")
+    check(post < LOOP_POST_ATE, f"loop: ATE {post} >= {LOOP_POST_ATE}")
+    gba_prob, gba_iters = caps["gba"].args[0][0], caps["gba"].args[0][1]
+    fields = dict(frame=first_close, **closure["stats"], ms=closure["ms"],
+                  c_variant_launches=len(variant_calls),
+                  gba=dict(K=int(gba_prob.poses.shape[0]),
+                           M=int(gba_prob.points.shape[0]), iters=int(gba_iters)),
+                  peak_ate=peak, post_ate=post, keyframes=n_kf)
+    return counts, {k: c.args for k, c in caps.items()}, fields
+
+
+def loop_rows(dev, record, args):
+    """Kernels K, M (search and LM), P, F' and C's octave-window variant
+    against their plain versions on the arguments the loop path gave them,
+    and the rows of K, both of M's and P."""
+    from orbslam2_tpu_torch.kernels import (ba_solve_blocked, hamming,
+                                            pose_graph, sim3_opt, sim3_ransac,
+                                            sim3_search)
+    from orbslam2_tpu_torch.ops import geometry as geo
+    from orbslam2_tpu_torch.ops import sim3_opt as sim3_ops
+
+    # K: inlier sets >= 99% equal, S12 within 1e-4, counts within 1%
+    a, kw = args["K"]
+    cam = a[0]
+    n, n_samples = a[1].shape[0], a[6].shape[0]
+    rk = sim3_ransac.unpack(sim3_ransac.sim3_ransac(*a, **kw).cpu().numpy(), n)
+    rp = sim3_ransac.unpack(sim3_ransac.sim3_ransac_plain(*a, **kw).cpu().numpy(), n)
+    err_k = float(np.abs(rk.S12 - rp.S12).max())
+    agree = float((rk.inliers == rp.inliers).mean())
+    check(err_k <= 1e-4 and agree >= 0.99 and abs(rk.n_inliers - rp.n_inliers)
+          <= max(1, n // 100), f"kernel K: S12 {err_k}, inliers agree {agree}, "
+          f"{rk.n_inliers} vs {rp.n_inliers}")
+
+    def horn_eigh():
+        """the library's eigh of the hypotheses' 4x4 Horn matrices"""
+        idx = a[6].long()
+        src, dst = a[2][idx], a[1][idx]
+        sc, dc = src - src.mean(1, keepdim=True), dst - dst.mean(1, keepdim=True)
+        return torch.linalg.eigh(geo.horn_matrix(
+            torch.einsum("hni,hnj->hij", sc, dc) / 3.0))
+
+    record(sim3_ransac, err_k, lambda: sim3_ransac.sim3_ransac(*a, **kw),
+           cuda_ms(lambda: sim3_ransac.sim3_ransac_plain(*a, **kw)),
+           f"N={n} ({int(a[5].sum())} matched), {n_samples} hypotheses, "
+           f"fix_scale={kw.get('fix_scale')}: {rk.n_inliers} vs {rp.n_inliers} "
+           f"inliers, inlier sets agree {agree:.4f}, S12 max diff {err_k:.2e}; "
+           f"library: torch.linalg.eigh of {n_samples} 4x4 matrices",
+           library_ms=cuda_ms(horn_eigh),
+           # points, sigmas, validity and samples read once, the packed
+           # result written; per hypothesis and point two Sim3 applications,
+           # two projections pairs and chi2 (~70 ops), the refit's sums and
+           # recounts (~300 per point)
+           n_bytes=nbytes(*a[1:7]) + 4 * (10 + n),
+           n_ops=70 * n_samples * n + 300 * n, per_call=2)
+
+    # M's search: idx2 and mutual bit-exact
+    a, kw = args["M_search"]
+    ik, mk = sim3_search.search_by_sim3(*a, **kw)
+    ip, mp = sim3_search.search_by_sim3_plain(*a, **kw)
+    check(torch.equal(ik, ip) and torch.equal(mk, mp), "kernel M's search differs")
+    cam, S12 = a[0], a[1]
+    pairs = gates = 0
+    for parts, src, dst in ((sim3_ops.sim3_parts(geo.sim3_inverse(S12)), a[2:8], a[8:14]),
+                            (sim3_ops.sim3_parts(S12), a[8:14], a[2:8])):
+        rows, pair = sim3_ops.direction_pairs(cam, parts, src[0], src[3], dst[4],
+                                              dst[5], a[14], a[15])
+        rows = rows & src[2]
+        gates += int(rows.sum()) * int(dst[2].sum())
+        pairs += int((pair & rows[:, None] & dst[2][None]).sum())
+    n1, n2 = a[2].shape[0], a[8].shape[0]
+    record(sim3_search, 0.0, lambda: sim3_search.search_by_sim3(*a, **kw),
+           cuda_ms(lambda: sim3_search.search_by_sim3_plain(*a, **kw)),
+           f"bit-exact; N1={n1} N2={n2}, {int(mk.sum())} mutual matches, "
+           f"{pairs} admitted pairs",
+           # both sides read once, idx2 and mutual written; per source row
+           # the transform, projection and level (~60 ops), per (row,
+           # keypoint) of a live row the gate (~10), per admitted pair the
+           # 256-bit distance and the minimum (~27)
+           n_bytes=nbytes(*a[2:14]) + 5 * n1, per_call=2,
+           n_ops=60 * (n1 + n2) + 10 * gates + 27 * pairs)
+
+    # M's LM: S12 within 1e-4, inlier counts within 1
+    a, kw = args["M_opt"]
+    n = a[2].shape[0]
+    rk = sim3_opt.unpack(sim3_opt.optimize_sim3(*a, **kw).cpu().numpy(), n)
+    rp = sim3_opt.unpack(sim3_opt.optimize_sim3_plain(*a, **kw).cpu().numpy(), n)
+    err_m = float(np.abs(rk.S12 - rp.S12).max())
+    check(err_m <= 1e-4 and abs(rk.n_inliers - rp.n_inliers) <= 1,
+          f"kernel M's LM: S12 {err_m}, inliers {rk.n_inliers} vs {rp.n_inliers}")
+    n_valid = int(a[8].sum())
+    record(sim3_opt, err_m, lambda: sim3_opt.optimize_sim3(*a, **kw),
+           cuda_ms(lambda: sim3_opt.optimize_sim3_plain(*a, **kw), reps=3),
+           f"N={n}, {n_valid} pairs, {rk.n_inliers} vs {rp.n_inliers} inliers, "
+           f"S12 max diff {err_m:.2e}",
+           # the pairs read once, the packed result written; 15 iterations
+           # over the valid pairs of the 4 residual rows in dual numbers
+           # (~1300 ops), H and g (~280), both trial costs (~120)
+           n_bytes=nbytes(*a[1:9]) + 4 * (9 + n), n_ops=15 * 1700 * n_valid)
+
+    # C's variant (no octave window, 10 px): bit-exact
+    a, kw = args["C"]
+    out_k = hamming.hamming_top2_gated(*a, **kw)
+    out_p = hamming.hamming_top2_gated_plain(*a, **kw)
+    check(all(torch.equal(x, y) for x, y in zip(out_k, out_p)),
+          "kernel C's octave-window variant differs")
+    fn_c = lambda: hamming.hamming_top2_gated(*a, **kw)  # noqa: E731
+    ms_c = cuda_ms(fn_c)
+    dev_c = device_ms(fn_c, hamming.FUNCTION)
+    rows_c = int(a[5].sum())
+    in_r = ((a[1][a[5]][:, None, :] - a[7][None]) ** 2).sum(-1) <= 100.0
+    in_r = in_r & a[9][None]
+    # as C's row: the gate (~10 ops) for every valid row and keypoint, the
+    # distance and top-2 update (~27) for the pairs inside the radius
+    bound_c, by_c = bound(sum(t.numel() * t.element_size() for t in a) + 16 * a[0].shape[0],
+                          10 * rows_c * int(a[9].sum()) + 27 * int(in_r.sum()))
+    print(f"kernel hamming_top2_gated (loop acceptance count, no octave window, "
+          f"10 px): bit-exact; P={a[0].shape[0]} ({rows_c} in view) x "
+          f"N={a[6].shape[0]}, {int(((out_k[1] <= 50) & a[5]).sum())} matches; "
+          f"{ms_c:.4f} ms a call (device {dev_c:.4f} ms) vs plain "
+          f"{cuda_ms(lambda: hamming.hamming_top2_gated_plain(*a, **kw)):.4f} ms, "
+          f"bound {bound_c:.6f} ms ({by_c}), library none")
+
+    # F' on the GBA's last system: trial poses within 1e-4
+    a, kw = args["F'"]
+    dk, pk = ba_solve_blocked.ba_solve_blocked(*a, **kw)
+    dp, pp = ba_solve_blocked.ba_solve_blocked_plain(*a, **kw)
+    err_f = (pk - pp).abs().max().item()
+    check(err_f <= 1e-4, f"kernel F' on the GBA system: poses differ by {err_f}")
+    print(f"kernel ba_solve_blocked (the loop's GBA, 6K={6 * a[4].shape[0]}): "
+          f"trial poses max diff {err_f:.2e}; "
+          f"{cuda_ms(lambda: ba_solve_blocked.ba_solve_blocked(*a, **kw)):.4f} ms "
+          f"a call vs plain "
+          f"{cuda_ms(lambda: ba_solve_blocked.ba_solve_blocked_plain(*a, **kw)):.4f} ms")
+
+    # P: camera centres within 1e-3 m, rotations within 1e-3 rad
+    a, kw = args["P"]
+    pk = pose_graph.optimize_pose_graph(*a, **kw)
+    pp = pose_graph.optimize_pose_graph_plain(*a, **kw)
+    err_c, err_r = pose_diff(pk.poses, pp.poses, a[2])
+    check(err_c <= 1e-3 and err_r <= 1e-3,
+          f"kernel P: centres {err_c} m, rotations {err_r} rad")
+    K, E = a[0].shape[0], a[3].shape[0]
+    n = 7 * K
+    iters = kw.get("iters", 20)
+    g = torch.Generator(device=dev).manual_seed(0)
+    B = torch.randn(n, n, device=dev, generator=g)
+    A_spd = B @ B.T / n + torch.eye(n, device=dev)
+    rhs = torch.randn(n, 1, device=dev, generator=g)
+    record(pose_graph, max(err_c, err_r), lambda: pose_graph.optimize_pose_graph(*a, **kw),
+           cuda_ms(lambda: pose_graph.optimize_pose_graph_plain(*a, **kw), reps=3,
+                   warmup=1),
+           f"K={K} slots ({int(a[2].sum())} live), E={E}, {iters} iterations: "
+           f"centres max diff {err_c:.2e} m, rotations {err_r:.2e} rad, cost "
+           f"{pk.cost.item():.3e} vs {pp.cost.item():.3e}; library: "
+           f"torch.linalg.cholesky + torch.cholesky_solve of one n={n} system "
+           f"(one iteration's solve)",
+           library_ms=cuda_ms(lambda: torch.cholesky_solve(
+               rhs, torch.linalg.cholesky(A_spd))),
+           function=None,
+           # the graph read once, the poses written; per iteration and edge
+           # two dual-number linearizations (~2 x 100k ops) and the blocks'
+           # products (~2.4k), the factorization n^3/3 multiply-adds, the
+           # solves, and the cost at the trial (~20k per edge)
+           n_bytes=nbytes(*a) + 4 * (8 * K + 1),
+           n_ops=iters * (E * (200000 + 2400 + 20000) + 2 * n ** 3 // 3
+                          + 4 * n * n))
+
+
+def pose_diff(Sa, Sb, valid):
+    """(camera centres' max difference, rotations' max angle) over the
+    valid vertices of two (K, 8) Sim3 sets."""
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    def centres(S):
+        R, t, s = geo.sim3_R(S), geo.sim3_t(S), geo.sim3_s(S)
+        return -(R.transpose(-1, -2) @ t[..., None])[..., 0] / s[:, None]
+
+    dc = (centres(Sa) - centres(Sb)).norm(dim=1)[valid]
+    dR = geo.sim3_R(Sa).transpose(-1, -2) @ geo.sim3_R(Sb)
+    return dc.max().item(), geo.so3_log(dR).norm(dim=1)[valid].max().item()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1574,16 +1931,18 @@ def main():
     rows = []
 
     def record(mod, err, fn, plain_ms, note, n_bytes, n_ops, library_ms=None,
-               per_call=1, bound_override=None):
+               per_call=1, bound_override=None, function=""):
         """One kernel's row: ms is one call of ``fn`` between CUDA events
         (host work included; ``per_call`` launches, e.g. every pyramid
         level), device_ms the kernel's own device time per call, plain_ms
         the plain version's call between CUDA events, library_ms one
         PyTorch call of the same function where there is one. The bound is
         bound(n_bytes, n_ops), or ``bound_override`` (ms, by) where the work
-        runs at another peak."""
+        runs at another peak. ``function=None`` takes every device event
+        of the call (a kernel that runs another's launches)."""
         ms = cuda_ms(fn)
-        dev_ms = device_ms(fn, mod.FUNCTION, per_call=per_call)
+        dev_ms = device_ms(fn, mod.FUNCTION if function == "" else function,
+                           per_call=per_call)
         bound_ms, bound_by = bound_override or bound(n_bytes, n_ops)
         seen, launched = profile_gaps.pop(mod.FUNCTION, (20 * per_call,) * 2)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
@@ -1735,6 +2094,7 @@ def main():
           f"{3 * per_pass + bnd['cascade_pack']:.6f} ms")
     mapping_rows(dev, record, cam, extractor, frames, poses)
     ba_rows(dev, record)
+    blocked_rows(dev, record)
     front_rows(dev, record, img0, frames[0][1], feats, cam)
     print(f"device times: {len(rows)} kernels; profiles that missed launches "
           f"(kernel, events, launches): {profile_retries or 'none'}")
@@ -1787,14 +2147,23 @@ def main():
     slam_s, path_counts["stereo"], pairs, v_args, w_args = stereo_path(dev)
     path_counts["fallback"], u_args, _ = fallback_path(dev, slam_s, pairs[-1])
     path_counts["mono"], uw_args, x_args = mono_path(dev)
+
+    # ---- phase 7: loop closing on the circuit ------------------------------
+    path_counts["loop"], loop_args, loop_fields = loop_path(dev)
+    print("loop " + json.dumps(loop_fields))
     for path, names in PATHS.items():
         for name in names:
             check(path_counts[path][name] > 0,
                   f"kernel {name} never launched on the {path} path")
+    launched = {k for k, v in path_counts["loop"].items() if v > 0}
+    check(launched == set(PATHS["loop"]),
+          f"the loop path launched {sorted(launched ^ set(PATHS['loop']))} "
+          f"against PATHS['loop']")
     n_retries = len(profile_retries)
     port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args)
     reloc_rows(dev, record, y_args, ur_args, z_args)
-    print(f"device times of U, V, W, X, Y, Z: profiles that missed launches "
+    loop_rows(dev, record, loop_args)
+    print(f"device times of U, V, W, X, Y, Z, K, M, P: profiles that missed launches "
           f"(kernel, events, launches): {profile_retries[n_retries:] or 'none'}")
     total = {mod.NAME: sum(c[mod.NAME] for c in path_counts.values())
              for mod in kernels.KERNELS}

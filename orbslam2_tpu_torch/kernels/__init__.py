@@ -28,22 +28,29 @@ time it launches the CUDA kernel:
   two_view        X  two-view H/F initializer         (ops/initializer.py)
   bow_words       Y  BoW words + TF-IDF vector        (ops/bow.py)
   pnp_ransac      Z  EPnP RANSAC + refine             (ops/pnp.py, tracking.py)
+  sim3_ransac     K  Sim3 RANSAC (Horn) + refit       (ops/sim3_solver.py, loop_closing.py)
+  sim3_opt        M  Sim3 LM refinement, 5 + 10 its   (ops/sim3_opt.py, loop_closing.py)
+  sim3_search     M  SearchBySim3, both directions    (ops/sim3_opt.py, loop_closing.py)
+  pose_graph      P  essential graph, dense LM        (ops/pose_graph.py, loop_closing.py)
+  ba_solve_blocked F' blocked multi-block Cholesky     (ops/ba.py past 6K = 384, kernel P)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
 """
 
-from . import (ba_accept, ba_linearize, ba_solve, ba_update_cost,
-               bow_words, cascade_pack, claim_resolve, describe, fast_score,
-               fuse_match, hamming, match_rot, orb_select, pnp_ransac,
-               point_attrs, pose_lm, project_gate, pyramid, rgbd_depth,
-               stereo_match, stereo_sad, triangulate, two_view)
+from . import (ba_accept, ba_linearize, ba_solve, ba_solve_blocked,
+               ba_update_cost, bow_words, cascade_pack, claim_resolve,
+               describe, fast_score, fuse_match, hamming, match_rot,
+               orb_select, pnp_ransac, point_attrs, pose_graph, pose_lm,
+               project_gate, pyramid, rgbd_depth, sim3_opt, sim3_ransac,
+               sim3_search, stereo_match, stereo_sad, triangulate, two_view)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
            point_attrs, project_gate, claim_resolve, cascade_pack,
            triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
-           two_view, bow_words, pnp_ransac)
+           two_view, bow_words, pnp_ransac, sim3_ransac, sim3_opt,
+           sim3_search, pose_graph, ba_solve_blocked)
 
 
 def reset_launches():

@@ -18,8 +18,9 @@ with E_o = Jp^T w Jl. The plain version forms the pair sums as one matrix
 product of the landmarks' blocks placed in their cameras' rows and
 scatters the diagonal blocks with ``index_add_``.
 
-Limits of the kernel: K <= 64 cameras, M <= 4096 landmarks, O <= 8
-observation slots; larger problems raise.
+Limits of the kernels E-H and F': K <= 256 cameras, M <= 32768 landmarks,
+O <= 8 observation slots (the reference's largest global-BA bucket,
+``orbslam2_tpu/loop_closing.py:594``); larger problems raise.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ launches = 0
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
-MAX_K, MAX_M, MAX_O = 64, 4096, 8
+MAX_K, MAX_M, MAX_O = 256, 32768, 8
 
 
 class Linearized(NamedTuple):

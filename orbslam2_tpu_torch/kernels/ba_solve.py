@@ -11,6 +11,10 @@ camera block is damped by lam times its mean diagonal, the system is made
 exactly symmetric, factorised and solved for dc = -S^-1 b_S, and
 poses_n = se3_exp(dc) @ poses. A non-positive pivot gives NaN steps for the
 optimised cameras, which the cost test then rejects.
+
+Kernel F holds the system in one block's reach, 6K <= 384 (K <= 64); past
+that ``ba_solve`` hands the same function to kernel F'
+(``kernels/ba_solve_blocked.py``), the multi-block factorization.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ FUNCTION = "ba_solve_kernel"  # the __global__ function it launches
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:224"
 launches = 0
+MAX_SINGLE_K = 64  # 6K <= kMaxN = 384 in csrc/ba.cu
 
 
 def damped_system(S, b_S, opt_mask, lam):
@@ -60,13 +65,18 @@ def ba_solve_plain(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Te
 
 
 def ba_solve(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel F on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel F on CUDA tensors (kernel F' past K = 64), the plain version
+    on CPU tensors."""
     global launches
     if S.device.type == "cpu":
         return ba_solve_plain(S, b_S, opt_mask, lam, poses)
     dev = S.device
     K = poses.shape[0]
     check_sizes(NAME, K, 0, 0)
+    if K > MAX_SINGLE_K:
+        from . import ba_solve_blocked
+
+        return ba_solve_blocked.ba_solve_blocked(S, b_S, opt_mask, lam, poses)
     n = 6 * K
     build.expect(NAME, dev, (
         ("S", S, torch.float32, (n, n)),

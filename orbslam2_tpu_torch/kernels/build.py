@@ -46,7 +46,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "osl_fast_score_nms": [_P, _P, _P, _I, _I, _I, _P],
     "osl_orb_describe": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
-    "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I, _P, _I]
+    "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 4 + [_P, _I]
     + [_P] * 5,
     "osl_pose_lm": [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P, _I] + [_P] * 5,
     "osl_ba_linearize": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 6,
@@ -78,6 +78,14 @@ _SIGNATURES = {
     "osl_two_view_select": [_P, _I] + [_P] * 8,
     "osl_bow_words": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
     "osl_pnp_ransac": [_P] * 4 + [_I, _P, _I] + [_F] * 4 + [_I] + [_P] * 6,
+    "osl_sim3_ransac": [_P] * 5 + [_I, _P, _I] + [_F] * 4 + [_I, _F, _I]
+    + [_P] * 5,
+    "osl_sim3_opt": [_P] * 8 + [_I] + [_F] * 4 + [_I, _F, _I, _I] + [_P] * 5,
+    "osl_sim3_search": [_P] * 6 + [_I] + [_P] * 6 + [_I, _P] + [_F] * 4
+    + [_I, _I, _F, _P, _I] + [_P] * 5,
+    "osl_cholesky_solve_blocked": [_P, _I, _P, _P, _P],
+    "osl_ba_solve_blocked": [_P] * 5 + [_I] + [_P] * 6,
+    "osl_pose_graph": [_P] * 8 + [_I] * 4 + [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,17 +12,19 @@
 // Design: one warp per map point. Rows that are not valid (padding, or
 // outside the frustum) exit at once, which is most of a padded local map.
 // Lane l scans keypoints j = l, l + 32, ...; the gate (squared radius,
-// octave in [pred - 1, pred], u_right window) is evaluated with the same
-// single float32 operations as the plain version, and only an admitted pair
-// loads the keypoint's descriptor (two 16-byte loads) for eight __popc. Each
-// lane keeps its best and second-best as 64-bit (distance, index) keys, and a
-// butterfly merge across the warp picks the lexicographic two smallest, which
-// is jnp.argmin's first-index-on-ties rule and masked_top2's "exclude only
-// best_idx" rule. Rows with no admitted pair, or no second, report index 0
+// octave in [pred + lo, pred + hi] when oct_on, u_right window) is
+// evaluated with the same single float32 operations as the plain version,
+// and only an admitted pair loads the keypoint's descriptor (two 16-byte
+// loads) for eight __popc. Each lane keeps its best and second-best as
+// 64-bit (distance, index) keys, and a butterfly merge across the warp
+// picks the lexicographic two smallest, which is jnp.argmin's
+// first-index-on-ties rule and masked_top2's "exclude only best_idx" rule. Rows with no admitted pair, or no second, report index 0
 // and distance INVALID as masked_top2 does, so all four outputs are
 // bit-exact integers against the plain version.
 // A launch given a gate (the retry pass of the tracking cascade) returns at
-// once unless the first pass's inlier count is below the threshold.
+// once unless the first pass's inlier count is below the threshold. The
+// octave window is a launch argument: (-1, 0) for the tracking cascade, off
+// for loop closing's acceptance count (orbslam2_tpu/loop_closing.py:321-330).
 #include "common.cuh"
 
 namespace {
@@ -56,7 +58,8 @@ __global__ void hamming_top2_kernel(
     int P, const uint8_t* __restrict__ kp_desc,
     const float* __restrict__ kp_xy, const int* __restrict__ kp_octave,
     const uint8_t* __restrict__ kp_valid, const float* __restrict__ kp_ur,
-    int N, const int* gate_n, int gate_min, int* __restrict__ best_idx,
+    int N, int oct_on, int oct_lo, int oct_hi, const int* gate_n, int gate_min,
+    int* __restrict__ best_idx,
     int* __restrict__ best, int* __restrict__ second,
     int* __restrict__ second_idx) {
   if (gate_n != nullptr && !(*gate_n < gate_min)) return;
@@ -82,7 +85,7 @@ __global__ void hamming_top2_kernel(
       const float dy = py - kp_xy[2 * j + 1];
       if (!(dx * dx + dy * dy <= r2)) continue;
       const int diff = kp_octave[j] - pl;
-      if (diff < -1 || diff > 0) continue;
+      if (oct_on && (diff < oct_lo || diff > oct_hi)) continue;
       const float kur = kp_ur[j];
       if (!(kur <= 0.0f || fabsf(urp - kur) <= r)) continue;
       const uint4* kd = reinterpret_cast<const uint4*>(kp_desc + 32 * j);
@@ -117,16 +120,16 @@ OSL_EXPORT int osl_hamming_top2_gated(
     const uint8_t* mp_desc, const float* proj, const float* r_px,
     const int* pred_level, const float* ur_pred, const uint8_t* row_valid,
     int P, const uint8_t* kp_desc, const float* kp_xy, const int* kp_octave,
-    const uint8_t* kp_valid, const float* kp_ur, int N, const int* gate_n,
-    int gate_min, int* best_idx, int* best, int* second, int* second_idx,
-    void* stream) {
+    const uint8_t* kp_valid, const float* kp_ur, int N, int oct_on, int oct_lo,
+    int oct_hi, const int* gate_n, int gate_min, int* best_idx, int* best,
+    int* second, int* second_idx, void* stream) {
   if (P <= 0) return 0;
   const int threads = 256;  // 8 rows per block
   const int blocks = (P * 32 + threads - 1) / threads;
   hamming_top2_kernel<<<blocks, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       mp_desc, proj, r_px, pred_level, ur_pred, row_valid, P, kp_desc, kp_xy,
-      kp_octave, kp_valid, kp_ur, N, gate_n, gate_min, best_idx, best, second,
-      second_idx);
+      kp_octave, kp_valid, kp_ur, N, oct_on, oct_lo, oct_hi, gate_n, gate_min,
+      best_idx, best, second, second_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,12 @@ builds from ``radius_gate``, ``octave_gate`` (octave in [pred - 1, pred])
 and the u_right window. CUDA source: ``csrc/hamming_top2.cu`` (one warp per
 map point, gate evaluated in-kernel, the (P, N) matrix never stored).
 The four (P,) integer outputs are bit-exact against the plain version.
+
+The octave window [pred + lo, pred + hi] is a launch argument
+(``octave_window=(lo, hi)``, (-1, 0) for the tracking cascade); with
+``octave_window=None`` there is none. Loop closing's acceptance count
+(``orbslam2_tpu/loop_closing.py``: ``radius_gate`` + ``match_descriptors``
+at TH_LOW without a ratio) runs that variant with a 10 px radius.
 """
 
 from __future__ import annotations
@@ -25,10 +31,14 @@ launches = 0
 
 
 def projection_pair_mask(proj, r_px, pred_level, ur_pred, row_valid, kp_xy,
-                         kp_octave, kp_valid, kp_ur) -> torch.Tensor:
+                         kp_octave, kp_valid, kp_ur, octave_window=(-1, 0)
+                         ) -> torch.Tensor:
     """The (P, N) admissible-pair mask of the projection search."""
-    pair = matching.radius_gate(proj, kp_xy, r_px) & matching.octave_gate(
-        pred_level, kp_octave, lo=-1, hi=0)
+    pair = matching.radius_gate(proj, kp_xy, r_px)
+    if octave_window is not None:
+        pair = pair & matching.octave_gate(pred_level, kp_octave,
+                                           lo=octave_window[0],
+                                           hi=octave_window[1])
     ur_ok = (kp_ur[None, :] <= 0) | (
         (ur_pred[:, None] - kp_ur[None, :]).abs() <= r_px[:, None])
     return pair & ur_ok & row_valid[:, None] & kp_valid[None, :]
@@ -36,7 +46,8 @@ def projection_pair_mask(proj, r_px, pred_level, ur_pred, row_valid, kp_xy,
 
 def hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level, ur_pred,
                              row_valid, kp_desc, kp_xy, kp_octave, kp_valid,
-                             kp_ur, gate=None) -> Tuple[torch.Tensor, ...]:
+                             kp_ur, gate=None, octave_window=(-1, 0)
+                             ) -> Tuple[torch.Tensor, ...]:
     """(best_idx, best, second, second_idx), each (P,) int32. Only valid
     rows are evaluated; the others get masked_top2's all-masked answer
     (0, INVALID, INVALID, 0). A closed ``gate`` leaves them unwritten."""
@@ -52,7 +63,7 @@ def hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level, ur_pred,
     if rows.numel():
         mask = projection_pair_mask(
             proj[rows], r_px[rows], pred_level[rows], ur_pred[rows],
-            row_valid[rows], kp_xy, kp_octave, kp_valid, kp_ur)
+            row_valid[rows], kp_xy, kp_octave, kp_valid, kp_ur, octave_window)
         dist = matching.hamming_matrix(mp_desc[rows], kp_desc)
         bi, b, s, si = matching.masked_top2(dist, mask)
         best_idx[rows], best[rows], second[rows], second_idx[rows] = bi, b, s, si
@@ -60,16 +71,18 @@ def hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level, ur_pred,
 
 
 def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
-                       kp_desc, kp_xy, kp_octave, kp_valid, kp_ur, gate=None
-                       ) -> Tuple[torch.Tensor, ...]:
+                       kp_desc, kp_xy, kp_octave, kp_valid, kp_ur, gate=None,
+                       octave_window=(-1, 0)) -> Tuple[torch.Tensor, ...]:
     """Kernel C on CUDA tensors, the plain version on CPU tensors. With a
     ``gate`` (count, threshold) it runs only while the device count is below
-    the threshold."""
+    the threshold; ``octave_window`` (lo, hi) or None as the plain
+    version."""
     global launches
     if mp_desc.device.type == "cpu":
         return hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level,
                                         ur_pred, row_valid, kp_desc, kp_xy,
-                                        kp_octave, kp_valid, kp_ur, gate)
+                                        kp_octave, kp_valid, kp_ur, gate,
+                                        octave_window)
     dev = mp_desc.device
     args = dict(mp_desc=(mp_desc, torch.uint8), proj=(proj, torch.float32),
                 r_px=(r_px, torch.float32), pred_level=(pred_level, torch.int32),
@@ -87,12 +100,15 @@ def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
         raise ValueError(f"{NAME}: descriptors must be (n, 32)")
     out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(4)]
     gate_n, gate_min = build.gate_args(gate)
+    oct_on = octave_window is not None
+    oct_lo, oct_hi = octave_window if oct_on else (0, 0)
     err = build.library().osl_hamming_top2_gated(
         t["mp_desc"].data_ptr(), t["proj"].data_ptr(), t["r_px"].data_ptr(),
         t["pred_level"].data_ptr(), t["ur_pred"].data_ptr(),
         t["row_valid"].data_ptr(), P, t["kp_desc"].data_ptr(),
         t["kp_xy"].data_ptr(), t["kp_octave"].data_ptr(),
-        t["kp_valid"].data_ptr(), t["kp_ur"].data_ptr(), N, gate_n, gate_min,
+        t["kp_valid"].data_ptr(), t["kp_ur"].data_ptr(), N, int(oct_on),
+        int(oct_lo), int(oct_hi), gate_n, gate_min,
         *(o.data_ptr() for o in out), build.stream_handle(dev))
     build.check(err, NAME)
     launches += 1

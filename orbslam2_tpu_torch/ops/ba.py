@@ -67,6 +67,28 @@ PLAIN_STEPS = _Steps(ba_linearize.ba_linearize_plain, ba_solve.ba_solve_plain,
                      ba_accept.ba_accept_plain)
 
 
+def pad_problem(prob: BAProblem, K: int, M: int) -> BAProblem:
+    """``prob`` padded to K cameras and M landmarks the way the reference
+    pads global BA to its size buckets: identity poses, held fixed; points
+    at the origin, invalid, without observations. Neither changes the
+    solution."""
+    k, m = prob.poses.shape[0], prob.points.shape[0]
+
+    def pad(t, n, fill):
+        extra = torch.full((n - t.shape[0],) + tuple(t.shape[1:]), fill,
+                           dtype=t.dtype, device=t.device)
+        return torch.cat([t, extra])
+
+    eye = torch.eye(4, dtype=prob.poses.dtype, device=prob.poses.device)
+    return BAProblem(
+        poses=torch.cat([prob.poses, eye.expand(K - k, 4, 4)]),
+        opt_mask=pad(prob.opt_mask, K, False), points=pad(prob.points, M, 0.0),
+        point_valid=pad(prob.point_valid, M, False),
+        obs_kf=pad(prob.obs_kf, M, -1), obs_uvr=pad(prob.obs_uvr, M, -1.0),
+        obs_sigma2=pad(prob.obs_sigma2, M, 1.0),
+        obs_valid=pad(prob.obs_valid, M, False))
+
+
 def optimize_ba(cam: Camera, prob: BAProblem, iters: int = 15,
                 outlier_rounds: int = 1, fix_points: bool = False) -> BAResult:
     """Run the reference's local/global BA schedule (single device): the

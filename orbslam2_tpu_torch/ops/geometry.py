@@ -1,10 +1,11 @@
-"""Batched SO(3)/SE(3) geometry, quaternions, Horn alignment and DLT
-triangulation (port of ``orbslam2_tpu.ops.geometry``; the Sim(3) group
-comes with loop closing).
+"""Batched SO(3)/SE(3) geometry, quaternions, Horn alignment, DLT
+triangulation and the Sim(3) group (port of ``orbslam2_tpu.ops.geometry``).
 
 Conventions as the reference: ``Tcw`` is the 4x4 camera-from-world
 transform, quaternions are (w, x, y, z), se3 tangents are (rho, phi)
-translation-first. All functions broadcast over leading batch dimensions.
+translation-first; Sim(3) vectors are [s, qw, qx, qy, qz, tx, ty, tz] and
+their tangents (rho, phi, sigma). All functions broadcast over leading batch
+dimensions.
 """
 
 from __future__ import annotations
@@ -209,8 +210,133 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Sim(3) — (s, R, t), stored as a (..., 8) vector [s, qw, qx, qy, qz, tx, ty, tz]
+# ---------------------------------------------------------------------------
+
+def sim3_make(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pack (scalar, 3x3, 3) into the (..., 8) Sim3 vector [s, qwxyz, t]."""
+    q = rotmat_to_quat(R)
+    s = torch.as_tensor(s, dtype=R.dtype, device=R.device).expand(R.shape[:-2])
+    return torch.cat([s[..., None], q, t], dim=-1)
+
+
+def sim3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], dtype=dtype,
+                        device=device)
+
+
+def sim3_s(S: torch.Tensor) -> torch.Tensor:
+    return S[..., 0]
+
+
+def sim3_R(S: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotmat(S[..., 1:5])
+
+
+def sim3_t(S: torch.Tensor) -> torch.Tensor:
+    return S[..., 5:8]
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """x -> s R x + t for (..., 3) points."""
+    return (sim3_s(S)[..., None] * (sim3_R(S) @ p[..., None])[..., 0]
+            + sim3_t(S))
+
+
+def sim3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A o B: apply B first, then A."""
+    sA, RA, tA = sim3_s(A), sim3_R(A), sim3_t(A)
+    sB, RB, tB = sim3_s(B), sim3_R(B), sim3_t(B)
+    t = sA[..., None] * (RA @ tB[..., None])[..., 0] + tA
+    return sim3_make(sA * sB, RA @ RB, t)
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    s, R, t = sim3_s(S), sim3_R(S), sim3_t(S)
+    s_inv = 1.0 / s.clamp_min(_EPS)
+    Rt = R.transpose(-1, -2)
+    t_inv = -s_inv[..., None] * (Rt @ t[..., None])[..., 0]
+    return sim3_make(s_inv, Rt, t_inv)
+
+
+def sim3_from_se3(T: torch.Tensor, s=1.0) -> torch.Tensor:
+    return sim3_make(torch.as_tensor(s, dtype=T.dtype, device=T.device).expand(
+        T.shape[:-2]), T[..., :3, :3], T[..., :3, 3])
+
+
+def se3_from_sim3(S: torch.Tensor) -> torch.Tensor:
+    """[R t/s; 0 1]: the loop-correction write-back projection."""
+    s = sim3_s(S).clamp_min(_EPS)
+    return se3_from_rt(sim3_R(S), sim3_t(S) / s[..., None])
+
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor):
+    """(K, W) of the Sim(3) exponential's translation part t = W rho (the
+    unit-axis skew K and W = A K + B K^2 + C I), with the reference's
+    small-sigma and small-angle branches."""
+    s = torch.exp(sigma)
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    K = hat(phi / theta.clamp_min(_EPS)[..., None])
+    eye = _eye3(phi).expand(K.shape)
+    small_sig = sigma.abs() < 1e-5
+    small_th = theta < 1e-5
+    C = torch.where(small_sig, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / torch.where(small_sig, torch.ones_like(sigma),
+                                            sigma))
+    a_ = s * torch.sin(theta)
+    b_ = s * torch.cos(theta)
+    th_sq = theta * theta
+    denom = (sigma * sigma + th_sq).clamp_min(_EPS)
+    A_gen = (a_ * sigma + (1.0 - b_) * theta) / (theta.clamp_min(_EPS) * denom)
+    B_gen = (C - ((b_ - 1.0) * sigma + a_ * theta) / denom) / th_sq.clamp_min(_EPS)
+    A_s0 = (1.0 - torch.cos(theta)) / th_sq.clamp_min(_EPS)
+    B_s0 = (theta - torch.sin(theta)) / (th_sq * theta).clamp_min(_EPS)
+    zero = torch.zeros_like(theta)
+    A = torch.where(small_th, zero,
+                    torch.where(small_sig, A_s0 * theta, A_gen * theta))
+    B = torch.where(small_th, zero,
+                    torch.where(small_sig, B_s0 * th_sq, B_gen * th_sq))
+    W = (A[..., None, None] * K + B[..., None, None] * (K @ K)
+         + C[..., None, None] * eye)
+    return s, W
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 7) tangent (rho, phi, sigma) -> Sim3 vector, with the exact
+    Sim(3) W matrix: t = W rho."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s, W = _sim3_W(phi, sigma)
+    t = (W @ rho[..., None])[..., 0]
+    return sim3_make(s, so3_exp(phi), t)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Inverse of sim3_exp: rho solves W rho = t with the same W."""
+    sigma = torch.log(sim3_s(S).clamp_min(_EPS))
+    phi = so3_log(sim3_R(S))
+    _, W = _sim3_W(phi, sigma)
+    rho = torch.linalg.solve(W, sim3_t(S)[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Horn absolute orientation (closed form, with optional scale)
 # ---------------------------------------------------------------------------
+
+def horn_matrix(M: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric (..., 4, 4) matrix of the (..., 3, 3) weighted
+    correlation M = sum w (src - mu_src)(dst - mu_dst)^T."""
+    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return torch.stack([
+        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
+        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
+    ], dim=-2)
+
 
 def horn_align(src: torch.Tensor, dst: torch.Tensor,
                weights: torch.Tensor | None = None, with_scale: bool = True):
@@ -231,16 +357,7 @@ def horn_align(src: torch.Tensor, dst: torch.Tensor,
     sc = src - mu_src[..., None, :]
     dc = dst - mu_dst[..., None, :]
     M = torch.einsum("...ni,...nj->...ij", sc * w, dc)
-    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    N = torch.stack([
-        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
-        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
-        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
-        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
-    ], dim=-2)
-    _, evecs = torch.linalg.eigh(N)
+    _, evecs = torch.linalg.eigh(horn_matrix(M))
     R = quat_to_rotmat(evecs[..., :, -1])
     if with_scale:
         Rs = torch.einsum("...ij,...nj->...ni", R, sc)

@@ -1,16 +1,16 @@
 """SlamSystem facade — the public API (port of ``orbslam2_tpu.system``,
 synchronous path).
 
-Construction wires the map, the keyframe database, the tracker and the
-local mapper onto one ``device``; ``track_rgbd``, ``track_stereo`` and
-``track_monocular`` track a frame, then run local mapping on every keyframe
-it created, in order, and add each keyframe still valid to the database.
-A lost tracker relocalizes against the database. ``save_map`` /
-``load_map`` persist the map and the database (the reference's file
-format); localization mode tracks without growing the map. Trajectories
-export in the TUM and KITTI formats. Loop closing (ROADMAP queue 1, slice
-8) is not in this slice; the reference's loop closer is what adds
-keyframes to the database there.
+Construction wires the map, the keyframe database, the tracker, the
+local mapper and (by default, as the reference) the loop closer onto one
+``device``; ``track_rgbd``, ``track_stereo`` and ``track_monocular`` track a
+frame, then run local mapping on every keyframe it created, in order, and
+the synchronous loop closer on each keyframe still valid: detection, the
+Sim3 alignment, the correction, the essential graph and global BA, after
+which the keyframe enters the database. A lost tracker relocalizes against
+the database. ``save_map`` / ``load_map`` persist the map and the database
+(the reference's file format); localization mode tracks without growing
+the map. Trajectories export in the TUM and KITTI formats.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from .config import SlamConfig
 from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map.keyframe_database import KeyFrameDatabase
 from .map.state import MapState
 from .ops import geometry as geo
@@ -30,13 +31,11 @@ from .tracking import Tracker, TrackingState
 
 
 class SlamSystem:
-    def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = False,
+    def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
                  device=DEFAULT_DEVICE):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing comes with ROADMAP queue 1, slice 8")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.enable_loop_closing = enable_loop_closing
         self.localization_only = False
         self._build()
 
@@ -47,6 +46,9 @@ class SlamSystem:
                                device=self.device)
         self.tracker.localization_only = self.localization_only
         self.local_mapper = LocalMapper(self.cfg, self.map, self.tracker.cam)
+        self.loop_closer = LoopCloser(
+            self.cfg, self.map, self.tracker.cam, self.kfdb
+        ) if self.enable_loop_closing else None
 
     # ------------------------------------------------------------------
     # Tracking entry points
@@ -74,9 +76,8 @@ class SlamSystem:
             return pose
         for kf in self._drain_keyframes():
             self.local_mapper.process_keyframe(kf)
-            # the reference's loop closer adds the keyframe after mapping
-            if self.map.kf_valid[kf]:
-                self.kfdb.add(kf)
+            if self.loop_closer is not None and self.map.kf_valid[kf]:
+                self.loop_closer.process_keyframe(kf)
         return pose
 
     def _drain_keyframes(self):
@@ -121,6 +122,8 @@ class SlamSystem:
 
         self.map = load_map(path, self.cfg, self.kfdb, device=self.device)
         self.tracker.map = self.local_mapper.map = self.kfdb.map = self.map
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.map
         # the tracker's local-map cache is keyed on (ref_kf, map.version),
         # which a new map can repeat
         self.tracker._local_cache_key = None

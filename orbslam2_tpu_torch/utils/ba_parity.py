@@ -43,8 +43,10 @@ LOOSE_SD = 0.05
 # kernels against the plain schedule: float atomics in S and sums in
 # another order (readings and margins in PERF.md)
 LIMITS = dict(poses=1e-4, points=1e-4, reproj=1e-2, flips=1e-3, cost=1e-3)
-# chip_smoke.py's shapes: cameras, landmarks, iterations (+ one outlier round)
-SHAPES = ((16, 1024, 5), (64, 4096, 10))
+# chip_smoke.py's shapes: cameras, landmarks, iterations (+ one outlier
+# round): the local-BA window, the reference bench's, and the largest
+# global-BA bucket (kernel F' solves it)
+SHAPES = ((16, 1024, 5), (64, 4096, 10), (256, 32768, 10))
 
 
 def compare(cam: Camera, prob: ba.BAProblem, res: ba.BAResult,

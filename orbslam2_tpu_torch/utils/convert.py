@@ -74,3 +74,18 @@ def keyframe_database_from_numpy(m: MapState, d: dict,
     kfdb.bow_mat = np.array(d["bow_mat"], np.float16)
     kfdb.in_db = np.array(d["in_db"], bool)
     return kfdb
+
+
+def set_loop_closer_state(lc, d: dict):
+    """Carry the reference LoopCloser's state into the port's ``lc``: its
+    ``consistent_groups`` (a list of (set of keyframes, count)),
+    ``last_loop_kf``, ``loops_closed`` and ``rng_state``, the state dict of
+    its numpy generator (``lc._rng.bit_generator.state``), so both draw the
+    same RANSAC samples from here on."""
+    lc.consistent_groups = [(set(int(k) for k in g), int(c))
+                            for g, c in d.get("consistent_groups", [])]
+    lc.last_loop_kf = int(d.get("last_loop_kf", lc.last_loop_kf))
+    lc.loops_closed = int(d.get("loops_closed", lc.loops_closed))
+    if "rng_state" in d:
+        lc._rng.bit_generator.state = d["rng_state"]
+    return lc

@@ -1,7 +1,7 @@
 """Where the time goes in a slice on one GPU.
 
     python -m orbslam2_tpu_torch.utils.profile_slice [--sensor rgbd]
-        [--frames 36] [--reps 2] [--reloc]
+        [--frames 36] [--reps 2] [--reloc | --loop]
 
 Runs ``SlamSystem`` in the sensor's configuration of ``utils/slices.py``
 (rgbd: 640x480, 1000 features, 8 levels; stereo: KITTI 1241x376, 2000
@@ -26,6 +26,14 @@ frames (LOST) and the revisited views 10-19 until the tracker
 relocalizes, with the relocalization's stages timed (BoW query on kernel
 Y, database, kernel U, kernel Z, the projection passes); a last rep is
 profiled and split into device busy and host time as above.
+
+``--loop`` runs the loop circuit (``utils/slices.circuit``: 240 RGB-D
+frames at 320x240, loop closing on) ``--reps`` times, each on a new system,
+and times the stages of the loop closure (detection, kernel U, K, M's search
+and LM, the acceptance count on C, the group correction, the fuse on T, the
+essential graph on P, GBA's gather, solve and write-back), each call
+synchronised; a last rep profiles the closing keyframe's loop closure alone
+and splits each stage into device busy and host time.
 """
 
 from __future__ import annotations
@@ -104,23 +112,11 @@ def stage_split(prof) -> dict:
     return out
 
 
-RELOC_STAGES = (("kfdb", "compute_bow", "bow"),
-                ("kfdb", "detect_relocalization_candidates", "database"),
-                ("tracker", "_project_pass", "passes"),
-                ("tracker", "_relocalize", "relocalize"))
-
-
-def reloc_profile(cfg, frames, dev, reps: int):
-    """The --reloc run: see the module's docstring."""
-    from ..kernels import match_rot, pnp_ransac
-
-    slam = SlamSystem(cfg, device=dev)
-    for i, frame in enumerate(frames):
-        slices.track(slam, "rgbd", frame, i / 30.0)
-    print(f"mapped {len(frames)} frames: {len(slam.map.valid_keyframes())} "
-          f"keyframes, {int(slam.kfdb.in_db.sum())} in the database")
-    acc, state = {}, {"mark": False}
-
+def _stage_timer(acc, state):
+    """A function wrap(obj, name, key) that replaces ``obj.name`` by a
+    synchronised call adding its host-clock time to ``acc[key]``, inside a
+    profiler range "stage:<key>" while ``state["mark"]``; returns the
+    original."""
     def wrap(obj, name, key):
         fn = getattr(obj, name)
 
@@ -138,7 +134,28 @@ def reloc_profile(cfg, frames, dev, reps: int):
             return out
 
         setattr(obj, name, wrapper)
+        return fn
 
+    return wrap
+
+
+RELOC_STAGES = (("kfdb", "compute_bow", "bow"),
+                ("kfdb", "detect_relocalization_candidates", "database"),
+                ("tracker", "_project_pass", "passes"),
+                ("tracker", "_relocalize", "relocalize"))
+
+
+def reloc_profile(cfg, frames, dev, reps: int):
+    """The --reloc run: see the module's docstring."""
+    from ..kernels import match_rot, pnp_ransac
+
+    slam = SlamSystem(cfg, device=dev)
+    for i, frame in enumerate(frames):
+        slices.track(slam, "rgbd", frame, i / 30.0)
+    print(f"mapped {len(frames)} frames: {len(slam.map.valid_keyframes())} "
+          f"keyframes, {int(slam.kfdb.in_db.sum())} in the database")
+    acc, state = {}, {"mark": False}
+    wrap = _stage_timer(acc, state)
     for owner, name, key in RELOC_STAGES:
         wrap(getattr(slam, owner), name, key)
     wrap(match_rot, "match_rot", "U")
@@ -182,6 +199,91 @@ def reloc_profile(cfg, frames, dev, reps: int):
         print(f"  {key:12s} {n:4d} {wall:9.2f} {busy:9.2f} {wall - busy:9.2f}")
 
 
+LOOP_STAGES = (("closer", "_detect_loop", "detect"),
+               ("closer", "_match_map_points", "U"),
+               ("sim3_ransac", "sim3_ransac", "K"),
+               ("sim3_search", "search_by_sim3", "M_search"),
+               ("sim3_opt", "optimize_sim3", "M_opt"),
+               ("closer", "_count_projected_matches", "C_count"),
+               ("closer", "_correct_group", "correct"),
+               ("closer", "_search_and_fuse", "fuse"),
+               ("closer", "_optimize_essential_graph", "essential"),
+               ("closer", "_gba_gather", "gba_gather"),
+               ("closer", "_gba_solve", "gba"),
+               ("closer", "_gba_write_back", "write_back"))
+
+
+def loop_profile(dev, reps: int):
+    """The --loop run: see the module's docstring."""
+    from ..kernels import sim3_opt, sim3_ransac, sim3_search
+
+    frames, poses = slices.circuit()
+    cfg = slices.config("circuit")
+    split = None
+    for rep in range(reps + 1):
+        profiled = rep == reps
+        slam = SlamSystem(cfg, device=dev)
+        closer = slam.loop_closer
+        owners = dict(closer=closer, sim3_ransac=sim3_ransac,
+                      sim3_search=sim3_search, sim3_opt=sim3_opt)
+        acc, state, out = {}, {"mark": False}, {}
+        wrap = _stage_timer(acc, state)
+        restore = [(owners[o], n, wrap(owners[o], n, key))
+                   for o, n, key in LOOP_STAGES]
+        process = closer.process_keyframe
+
+        def timed_process(kf, *a, **k):
+            acc.clear()
+            prof = None
+            if profiled and not out:  # profile each keyframe until one closes
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+                state["mark"] = True
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            closed = process(kf, *a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if prof is not None:
+                state["mark"] = False
+                prof.__exit__(None, None, None)
+            if closed and not out:
+                out.update(stages=dict(acc), wall=wall, kf=kf,
+                           stats=dict(closer.last_stats),
+                           split=stage_split(prof) if prof is not None else None)
+            return closed
+
+        closer.process_keyframe = timed_process
+        t0 = time.perf_counter()
+        for i, frame in enumerate(frames):
+            slices.track(slam, "rgbd", frame, i / 30.0)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        for obj, name, fn in restore:
+            setattr(obj, name, fn)
+        post = slices.keyframe_ate(slam, poses)
+        print(f"rep {rep}{' (profiled closure)' if profiled else ''}: "
+              f"{len(frames)} frames {total:.3f} s = {len(frames) / total:.2f} "
+              f"frames/s; {closer.loops_closed} loops, "
+              f"{len(slam.map.valid_keyframes())} keyframes, keyframe ATE "
+              f"{post:.5f} m")
+        if not out:
+            print("  no loop closed")
+            continue
+        print(f"  closure at keyframe {out['kf']}: {out['wall'] * 1e3:.2f} ms "
+              f"({out['stats']})")
+        for key, v in sorted(out["stages"].items(), key=lambda kv: -kv[1]):
+            print(f"  {key:12s} {v * 1e3:9.2f} ms")
+        split = out["split"] or split
+    if split:
+        print("stage split of the profiled closure: calls, wall ms, device busy "
+              "ms, host ms (wall - busy)")
+        for key, (n, wall, busy) in sorted(split.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {key:12s} {n:4d} {wall:9.2f} {busy:9.2f} {wall - busy:9.2f}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sensor", choices=slices.SENSORS, default="rgbd")
@@ -190,6 +292,8 @@ def main():
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--reloc", action="store_true",
                     help="time relocalization on the mapped RGB-D frames")
+    ap.add_argument("--loop", action="store_true",
+                    help="time one loop closure on the loop circuit")
     args = ap.parse_args()
     if args.reloc and args.sensor != "rgbd":
         raise SystemExit("profile_slice: --reloc runs on the rgbd sensor")
@@ -199,9 +303,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; sensor {args.sensor}")
+    dev = torch.device("cuda")
+    if args.loop:
+        loop_profile(dev, args.reps)
+        return
     cfg = slices.config(args.sensor)
     frames, _ = slices.frames(args.sensor, cfg, args.frames)
-    dev = torch.device("cuda")
     if args.reloc:
         reloc_profile(cfg, frames, dev, args.reps)
         return

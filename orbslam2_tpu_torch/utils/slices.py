@@ -15,6 +15,14 @@ card, one per sensor (``chip_smoke.py``, ``utils/profile_slice.py``):
              the distortion set to zero (the renderer draws a pinhole
              image).
 
+and one circuit for loop closing:
+
+  circuit    ``tests/test_loop_e2e.py``'s: 240 RGB-D frames at 320x240
+             (fx 260, bf 26, 600 features, 4 levels) of a 1.25-lap orbit on
+             a radius-3 circle facing outward in a 10 m box room, so the
+             last quarter revisits the first views (``circuit()``,
+             ``keyframe_ate``).
+
 The images are the renderer's float grey levels, as the reference's e2e
 tests feed them (quantized to 8 bits, the same stereo sequence at 320x240
 tracks with 3-4x the ATE in both packages).
@@ -44,12 +52,20 @@ from ..config import CameraConfig, ExtractorConfig, SlamConfig, load_config
 from .synthetic import make_box_room, orbit_trajectory, render, render_sequence
 
 SENSORS = ("rgbd", "stereo", "monocular")
+CIRCUIT_FRAMES = 240
+CIRCUIT_LAPS = 1.25  # 25% past 360 degrees: the last keyframes re-see the first
 SETTINGS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "examples", "settings")
 N_FRAMES = {"rgbd": 36, "stereo": 30, "monocular": 50}
 
 
 def config(sensor: str) -> SlamConfig:
+    if sensor == "circuit":
+        return SlamConfig(
+            sensor="rgbd",
+            camera=CameraConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320,
+                                height=240, bf=26.0, fps=30),
+            extractor=ExtractorConfig(n_features=600, n_levels=4))
     if sensor == "rgbd":
         return SlamConfig(
             sensor="rgbd",
@@ -93,6 +109,49 @@ def frames(sensor: str, cfg: SlamConfig, n: int = 0,
     pairs = [(render(planes, K, T, W, H), render(planes, K, Trl @ T, W, H))
              for T in poses]
     return pairs, poses
+
+
+def circuit_poses(n: int = CIRCUIT_FRAMES) -> List[np.ndarray]:
+    """Tcw on a radius-3 circle inside the 10 m box room, facing outward,
+    with a slight bob for parallax (the reference loop test's poses)."""
+    poses = []
+    for i in range(n):
+        th = 2 * np.pi * CIRCUIT_LAPS * i / n
+        C = 3.0 * np.array([np.sin(th), 0.0, np.cos(th)], np.float32)
+        C[1] = 0.08 * np.sin(0.11 * i)
+        Rwc = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                        [-np.sin(th), 0, np.cos(th)]], np.float32)
+        Tcw = np.eye(4, dtype=np.float32)
+        Tcw[:3, :3] = Rwc.T
+        Tcw[:3, 3] = -Rwc.T @ C
+        poses.append(Tcw)
+    return poses
+
+
+def circuit(n: int = CIRCUIT_FRAMES):
+    """(frames of (image, depth), true Tcw) of the loop circuit."""
+    cfg = config("circuit")
+    planes = make_box_room(seed=3, size=10.0, height=3.0)
+    poses = circuit_poses(n)
+    K = intrinsics(cfg)
+    frames = [render(planes, K, T, cfg.camera.width, cfg.camera.height,
+                     return_depth=True) for T in poses]
+    return frames, poses
+
+
+def keyframe_ate(slam, poses, fps: float = 30.0):
+    """ATE (no scale) of the keyframe trajectory against the true poses of
+    the frames the keyframes came from; None below 3 keyframes."""
+    from .evaluation import ate_rmse
+
+    kts, kps = [], []
+    for ts, T in slam.keyframe_trajectory():
+        kts.append(ts)
+        kps.append(np.linalg.inv(T)[:3, 3])
+    if len(kps) < 3:
+        return None
+    gt = np.stack([np.linalg.inv(poses[int(round(t * fps))])[:3, 3] for t in kts])
+    return ate_rmse(np.stack(kps), gt, with_scale=False)
 
 
 def track(slam, sensor: str, frame, ts: float):

@@ -257,3 +257,44 @@ def ba_window(K: int, M: int, O: int, seed: int = 0, fx: float = 520.0,
     points_init = points + rng.normal(0, 0.02, points.shape).astype(np.float32)
     return [poses_init, np.arange(K) > 0, points_init, np.ones(M, bool), obs_kf,
             obs_uvr, sigma2, obs_valid]
+
+
+def pose_graph_ring(K: int, seed: int = 0, fix_scale: bool = True):
+    """A drifted Sim3 essential graph: K keyframes on a radius-5 ring, exact
+    odometry edges (k, k - 1), one loop edge (0, K - 1) and a span-5 edge
+    every 5th keyframe; the start integrated along the odometry with 0.01
+    of noise per link (no scale noise with ``fix_scale``), keyframe 0
+    fixed. Returns ((S_init, fixed, valid, edge_i, edge_j, edge_Sij,
+    edge_valid), S_true) as torch tensors, the arguments of
+    ``ops.pose_graph.optimize_pose_graph``."""
+    import torch
+
+    from ..ops import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(K) / K
+    zero, one = np.zeros_like(a), np.ones_like(a)
+    Rwc = np.stack([np.stack([np.cos(a), zero, np.sin(a)], -1),
+                    np.stack([zero, one, zero], -1),
+                    np.stack([-np.sin(a), zero, np.cos(a)], -1)], 1)
+    C = np.stack([5 * np.sin(a), zero, 5 * (1 - np.cos(a))], -1)
+    Rcw = np.swapaxes(Rwc, 1, 2)
+    t = -np.einsum("kij,kj->ki", Rcw, C)
+    S_true = geo.sim3_make(torch.ones(K), torch.tensor(Rcw, dtype=torch.float32),
+                           torch.tensor(t, dtype=torch.float32))
+    ei = list(range(1, K)) + [0] + list(range(5, K, 5))
+    ej = list(range(0, K - 1)) + [K - 1] + list(range(0, K - 5, 5))
+    ei_t, ej_t = torch.tensor(ei), torch.tensor(ej)
+    Sij = geo.sim3_compose(S_true[ei_t], geo.sim3_inverse(S_true[ej_t]))
+    noise = torch.from_numpy(rng.normal(0, 0.01, (K, 7)).astype(np.float32))
+    if fix_scale:
+        noise[:, 6] = 0.0
+    S = [S_true[0]]
+    for k in range(K - 1):
+        S.append(geo.sim3_compose(geo.sim3_exp(noise[k][None]),
+                                  geo.sim3_compose(Sij[k][None], S[-1][None]))[0])
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    return (torch.stack(S), fixed, torch.ones(K, dtype=torch.bool),
+            ei_t.to(torch.int32), ej_t.to(torch.int32), Sij,
+            torch.ones(len(ei), dtype=torch.bool)), S_true

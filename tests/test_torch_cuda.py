@@ -124,9 +124,9 @@ def test_pose_lm_matches_plain(cuda):
     assert abs(int(nk) - int(npl)) <= 0.005 * valid.sum()
 
 
-# the two BA shapes of chip_smoke.py: the local-BA window and the
-# reference bench's, with the iterations each runs there
-BA_SHAPES = [(16, 1024, 5), (64, 4096, 10)]
+# the local-BA window and the reference bench's shape, with the iterations
+# chip_smoke.py runs there, and one past kernel F's 64 cameras (F' solving)
+BA_SHAPES = [(16, 1024, 5), (64, 4096, 10), (96, 8192, 5)]
 BA_CAM = Camera.create(520.0, 520.0, 320.0, 240.0, bf=52.0)
 
 
@@ -196,16 +196,22 @@ def test_optimize_ba_matches_plain(cuda, K, M, iters):
     # each phase's initial cost, the outlier classification and the final one
     n_lm = iters + max(iters // 2, 1)
     n_phases = len(ba._split(iters)) + len(ba._split(max(iters // 2, 1)))
-    assert counts["ba_linearize"] == counts["ba_solve"] == counts["ba_accept"] == n_lm
+    # F solves 6K <= 384 in one block, F' (blocked) past it
+    n_solve = counts["ba_solve"] + counts["ba_solve_blocked"]
+    assert counts["ba_linearize"] == n_solve == counts["ba_accept"] == n_lm
+    assert counts["ba_solve_blocked"] == (n_lm if K > ba_solve.MAX_SINGLE_K else 0)
     assert counts["ba_update_cost"] == n_lm + n_phases + 2
 
 
 def test_ba_kernels_refuse_oversize(cuda):
-    """Above K = 64, M = 4096 or O = 8 the kernels raise, they do not fall
-    back."""
-    big = _ba_problem(cuda, 16, 4097)
-    with pytest.raises(ValueError, match="M <= 4096"):
+    """Above K = 256, M = 32768 or O = 8 (the reference's largest global-BA
+    bucket) the kernels raise, they do not fall back."""
+    big = _ba_problem(cuda, 16, 32769)
+    with pytest.raises(ValueError, match="M <= 32768"):
         ba.optimize_ba(BA_CAM, big, iters=1)
+    wide = _ba_problem(cuda, 257, 1024)
+    with pytest.raises(ValueError, match="K <= 256"):
+        ba.optimize_ba(BA_CAM, wide, iters=1)
 
 
 def test_slice_runs_through_kernels(cuda):
@@ -961,3 +967,240 @@ def test_mono_long_sequence_drift_bounded(cuda):
     assert len(est) >= N - 45, len(est)
     err = ate_rmse(np.array(est), np.array(gt), with_scale=True)
     assert err < 0.08, err
+
+
+# ---------------------------------------------------------------------------
+# Loop closing (slice 8): kernels K, M (LM and search), P, F' and C's
+# octave-window variant against their plain versions, and the circuit
+# ---------------------------------------------------------------------------
+
+def _sim3_scene(n, s, noise, outlier_frac=0.0, seed=0):
+    """tests/test_solvers.py::TestSim3's scene: points 4-9 m ahead in camera
+    1, the same in camera 2 with p1 = s R p2 + t, noise and outliers on
+    camera 2's side."""
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    p1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(4, 9, n)], 1).astype(np.float32)
+    R = geo.so3_exp(torch.tensor([0.1, 0.2, -0.05])).numpy()
+    t = np.array([0.4, -0.3, 0.2], np.float32)
+    p2 = (((p1 - t) / s) @ R + rng.normal(0, noise, (n, 3))).astype(np.float32)
+    n_out = int(outlier_frac * n)
+    p2[:n_out] += rng.uniform(0.5, 1.5, (n_out, 3)).astype(np.float32)
+    samples = rng.integers(0, n, (256, 3)).astype(np.int32)
+    return p1, p2, samples, n_out
+
+
+@pytest.mark.parametrize("n,fix_scale,outliers", [(60, False, 0.0),
+                                                   (60, True, 0.0),
+                                                   (640, False, 0.25)])
+def test_sim3_ransac_matches_plain(cuda, n, fix_scale, outliers):
+    """Kernel K against ops/sim3_solver.py on the reference test's scenes
+    (and one at the circuit's 640 points): inlier sets >= 99% equal, S12
+    within 1e-4, counts within 1% (Horn's eigenvector by Jacobi in double on
+    the card, by torch.linalg.eigh in the plain version)."""
+    from orbslam2_tpu_torch.kernels import sim3_ransac
+
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0)
+    p1, p2, samples, _ = _sim3_scene(n, 1.0 if fix_scale else 1.4, 0.002,
+                                     outliers)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        p1, p2, np.ones(n, np.float32), np.ones(n, np.float32),
+        np.ones(n, bool), samples)]
+    k = sim3_ransac.unpack(sim3_ransac.sim3_ransac(
+        cam, *args, fix_scale=fix_scale).cpu().numpy(), n)
+    p = sim3_ransac.unpack(sim3_ransac.sim3_ransac_plain(
+        cam, *args, fix_scale=fix_scale).cpu().numpy(), n)
+    assert k.ok and p.ok
+    assert (k.inliers == p.inliers).mean() >= 0.99
+    assert abs(k.n_inliers - p.n_inliers) <= max(1, n // 100)
+    np.testing.assert_allclose(k.S12, p.S12, atol=1e-4)
+
+
+def _sim3_opt_scene(n=80, s=1.3, noise_px=0.3, outlier_frac=0.0, seed=0):
+    """tests/test_sim3_opt.py's problem: S12 maps camera 2 to camera 1."""
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    p1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(4, 9, n)], 1).astype(np.float32)
+    R = geo.so3_exp(torch.tensor([0.08, 0.15, -0.04]))
+    t = torch.tensor([0.4, -0.3, 0.2])
+    p2 = (((p1 - t.numpy()) / s) @ R.numpy()).astype(np.float32)
+
+    def proj(p):
+        return (500 * p[:, :2] / p[:, 2:3] + [320, 240]).astype(np.float32)
+
+    u1 = proj(p1) + rng.normal(0, noise_px, (n, 2)).astype(np.float32)
+    u2 = proj(p2) + rng.normal(0, noise_px, (n, 2)).astype(np.float32)
+    n_out = int(outlier_frac * n)
+    u1[:n_out] += rng.uniform(30, 80, (n_out, 2)).astype(np.float32)
+    S_true = geo.sim3_make(torch.tensor(s), R, t)
+    return p1, p2, u1, u2, S_true
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_sim3_opt_matches_plain(cuda, fix_scale):
+    """Kernel M's LM (dual-number Jacobians) against ops/sim3_opt.py
+    (torch.func.jacfwd) from a perturbed start, 25% outliers: S12 within
+    1e-4, inlier counts within 1."""
+    from orbslam2_tpu_torch.kernels import sim3_opt
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0)
+    p1, p2, u1, u2, S_true = _sim3_opt_scene(s=1.0 if fix_scale else 1.3,
+                                             outlier_frac=0.25)
+    xi = torch.tensor([0.05, -0.08, 0.03, 0.02, -0.015, 0.025,
+                       0.0 if fix_scale else 0.05])
+    S0 = geo.sim3_compose(geo.sim3_exp(xi[None]), S_true[None])[0]
+    n = len(p1)
+    args = [S0.to(cuda)] + [torch.from_numpy(a).to(cuda) for a in (
+        p1, p2, u1, u2, np.ones(n, np.float32), np.ones(n, np.float32),
+        np.ones(n, bool))]
+    k = sim3_opt.unpack(sim3_opt.optimize_sim3(
+        cam, *args, fix_scale=fix_scale).cpu().numpy(), n)
+    p = sim3_opt.unpack(sim3_opt.optimize_sim3_plain(
+        cam, *args, fix_scale=fix_scale).cpu().numpy(), n)
+    assert abs(k.n_inliers - p.n_inliers) <= 1
+    np.testing.assert_allclose(k.S12, p.S12, atol=1e-4)
+    np.testing.assert_allclose(k.S12[5:8], S_true[5:8].numpy(), atol=0.02)
+
+
+def test_sim3_search_bit_exact(cuda):
+    """Kernel M's search against ops/sim3_opt.py on TestSearchBySim3's scene
+    (scale 1.05, shared descriptors, three corrupted), octaves 0-3: idx2
+    and mutual bit-exact."""
+    from orbslam2_tpu_torch.kernels import sim3_search
+
+    n = 640
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0)
+    p1, p2, _, _, S_true = _sim3_opt_scene(n=n, s=1.05, noise_px=0.0)
+    rng = np.random.default_rng(1)
+    desc = rng.integers(0, 256, (n, 32)).astype(np.uint8)
+    desc2 = desc.copy()
+    desc2[:3] = rng.integers(0, 256, (3, 32)).astype(np.uint8)
+
+    def proj(p):
+        return (500 * p[:, :2] / p[:, 2:3] + [320, 240]).astype(np.float32)
+
+    oct1 = rng.integers(0, 4, n).astype(np.int32)
+    oct2 = rng.integers(0, 4, n).astype(np.int32)
+    dmax1 = (np.linalg.norm(p1, axis=1) * 1.1).astype(np.float32)
+    dmax2 = (np.linalg.norm(p2, axis=1) * 1.1).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    args = (cam, S_true.to(cuda), t(p1), t(desc), t(np.ones(n, bool)), t(dmax1),
+            t(proj(p1)), t(oct1), t(p2), t(desc2), t(np.ones(n, bool)),
+            t(dmax2), t(proj(p2)), t(oct2), 1.2, 8)
+    ik, mk = sim3_search.search_by_sim3(*args)
+    ip, mp = sim3_search.search_by_sim3_plain(*args)
+    assert torch.equal(ik, ip) and torch.equal(mk, mp)
+    assert int(mk.sum()) > 0.3 * n
+
+
+def test_hamming_octave_window_variant_bit_exact(cuda):
+    """Kernel C with the octave window off and a 10 px radius (loop
+    closing's acceptance count) and with the window (-1, +1): the four
+    outputs bit-exact against the plain version."""
+    rng = np.random.default_rng(3)
+    P, N = 2048, 640
+    kp_xy = np.stack([rng.uniform(0, 320, N), rng.uniform(0, 240, N)], 1)
+    proj = kp_xy[rng.integers(0, N, P)] + rng.normal(0, 6, (P, 2))
+    t = lambda a, d=None: torch.from_numpy(np.asarray(a, d)).to(cuda)  # noqa: E731
+    desc = rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    mp_desc = desc[rng.integers(0, N, P)] ^ (rng.random((P, 32)) < 0.05).astype(np.uint8)
+    args = (t(mp_desc), t(proj, np.float32), t(np.full(P, 10.0), np.float32),
+            t(rng.integers(0, 4, P), np.int32), t(np.zeros(P), np.float32),
+            t(rng.random(P) < 0.9), t(desc), t(kp_xy, np.float32),
+            t(rng.integers(0, 4, N), np.int32), t(rng.random(N) < 0.95),
+            t(np.zeros(N), np.float32))
+    for window in (None, (-1, 1)):
+        out_k = hamming.hamming_top2_gated(*args, octave_window=window)
+        out_p = hamming.hamming_top2_gated_plain(*args, octave_window=window)
+        assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+
+
+@pytest.mark.parametrize("n", [455, 1536, 2688])
+def test_cholesky_blocked_matches_library(cuda, n):
+    """Kernel F' blocked factorization and solve of an SPD system at the
+    circuit's essential graph (n = 455), GBA at K = 256 (1536) and the dense
+    pose-graph limit (2688) against the library's Cholesky solve: relative
+    error 1e-3."""
+    from orbslam2_tpu_torch.kernels import ba_solve_blocked
+
+    g = torch.Generator().manual_seed(n)
+    B = torch.randn(n, n, generator=g)
+    A = (B @ B.T / n + torch.eye(n)).to(cuda)
+    b = torch.randn(n, generator=g).to(cuda)
+    x, failed = ba_solve_blocked.cholesky_solve_blocked(A, b)
+    ref = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(A))[:, 0]
+    assert not bool(failed)
+    assert ((x - ref).norm() / ref.norm()).item() < 1e-3
+    # a matrix that is not positive definite sets the flag
+    _, failed = ba_solve_blocked.cholesky_solve_blocked(-A, b)
+    assert bool(failed)
+
+
+@pytest.mark.parametrize("K", [65, 384])
+def test_pose_graph_matches_plain(cuda, K):
+    """Kernel P (with F') against ops/pose_graph.py on a drifted ring at the
+    circuit's 65 slots and the dense limit: camera centres within 1e-3 m,
+    rotations within 1e-3 rad, and the drift removed."""
+    from orbslam2_tpu_torch.kernels import pose_graph
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    from orbslam2_tpu_torch.utils.synthetic import pose_graph_ring
+
+    args, S_true = pose_graph_ring(K)
+    args = [a.to(cuda) for a in args]
+    rk = pose_graph.optimize_pose_graph(*args, iters=20, fix_scale=True)
+    rp = pose_graph.optimize_pose_graph_plain(*args, iters=20, fix_scale=True)
+
+    def centres(S):
+        R, tt, s = geo.sim3_R(S), geo.sim3_t(S), geo.sim3_s(S)
+        return -(R.transpose(-1, -2) @ tt[..., None])[..., 0] / s[:, None]
+
+    assert (centres(rk.poses) - centres(rp.poses)).norm(dim=1).max() < 1e-3
+    dR = geo.sim3_R(rk.poses).transpose(-1, -2) @ geo.sim3_R(rp.poses)
+    assert geo.so3_log(dR).norm(dim=1).max() < 1e-3
+    err0 = (centres(args[0]) - centres(S_true.to(cuda))).norm(dim=1).max()
+    err = (centres(rk.poses) - centres(S_true.to(cuda))).norm(dim=1).max()
+    assert err < 0.5 * err0, (err0, err)
+
+
+def test_pose_graph_refuses_cg_size(cuda):
+    """Past 384 vertices the dense path raises (the CG solver is slice 8b)."""
+    from orbslam2_tpu_torch.kernels import pose_graph
+
+    from orbslam2_tpu_torch.utils.synthetic import pose_graph_ring
+
+    args, _ = pose_graph_ring(385)
+    with pytest.raises(NotImplementedError, match="slice 8b"):
+        pose_graph.optimize_pose_graph(*[a.to(cuda) for a in args])
+
+
+def test_rendered_circuit_closes_loop_and_improves_ate(cuda):
+    """tests/test_loop_e2e.py's synchronous circuit on the card: 240 frames
+    of a 1.25-lap orbit in the 10 m box room (320x240, 600 features,
+    RGB-D), loop closing on by default. The reference's assertions
+    unchanged: a loop closes, the drift was real (peak keyframe ATE >
+    0.015 m), and the correction beats 0.7 x the peak and 0.05 m."""
+    from orbslam2_tpu_torch.system import SlamSystem
+    from orbslam2_tpu_torch.utils import slices
+
+    frames, poses = slices.circuit()
+    slam = SlamSystem(slices.config("circuit"), device=cuda)
+    peak_ate = 0.0
+    for i, (img, depth) in enumerate(frames):
+        slam.track_rgbd(img, depth, i / 30.0)
+        if slam.loop_closer.loops_closed == 0:
+            a = slices.keyframe_ate(slam, poses)
+            if a is not None:
+                peak_ate = max(peak_ate, a)
+    assert slam.loop_closer.loops_closed >= 1, (
+        f"no loop closed over the circuit ({len(slam.map.valid_keyframes())} KFs)")
+    post_ate = slices.keyframe_ate(slam, poses)
+    assert post_ate is not None
+    assert peak_ate > 0.015, f"circuit accumulated no drift ({peak_ate:.4f})"
+    assert post_ate < 0.7 * peak_ate, (peak_ate, post_ate)
+    assert post_ate < 0.05, post_ate

@@ -82,7 +82,7 @@ def test_slice_parity_with_reference(mono_sequence):
                                     height=H, bf=0.0, fps=30),
         extractor=jconfig.ExtractorConfig(n_features=500, n_levels=4))
     ref = JSlamSystem(jcfg, enable_loop_closing=False)
-    port = SlamSystem(c, device="cpu")
+    port = SlamSystem(c, enable_loop_closing=False, device="cpu")
     for i, img in enumerate(frames[:6]):
         pj = ref.track_monocular(img, i / 30.0)
         pt = port.track_monocular(img, i / 30.0)

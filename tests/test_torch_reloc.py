@@ -191,7 +191,7 @@ def test_relocalization_slice_parity(mapped_run):
     path, frames, _, _ = mapped_run
     ref = JSlamSystem(_cfg(jconfig), enable_loop_closing=False)
     ref.load_map(path, localization_only=True)
-    port = SlamSystem(_cfg(), device="cpu")
+    port = SlamSystem(_cfg(), enable_loop_closing=False, device="cpu")
     port.load_map(path, localization_only=True)
     img, depth = frames[14]
     pj = ref.track_rgbd(img, depth, 0.0)

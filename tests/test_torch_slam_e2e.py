@@ -89,8 +89,26 @@ class TestRgbdPipeline:
 
     def test_unported_paths_raise(self, rgbd_sequence):
         img = rgbd_sequence[0][0][0]
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            SlamSystem(_cfg(), enable_loop_closing=True, device="cpu")
+        # loop closing is ported (slice 8) and on by default; what only
+        # maps past the reference's largest single solves reach waits for
+        # slice 8b: the GBA sweep past 256 live keyframes ...
+        closer = SlamSystem(_cfg(), device="cpu").loop_closer
+        assert closer is not None
+        closer.map.kf_valid[:257] = True
+        closer.map.n_kf = 257
+        with pytest.raises(NotImplementedError, match="slice 8b"):
+            closer.global_bundle_adjustment()
+        # ... and the conjugate-gradient pose graph past 384 vertices
+        from orbslam2_tpu_torch.ops import pose_graph
+
+        K = pose_graph.DENSE_MAX_K + 1
+        S = torch.zeros((K, 8))
+        S[:, :2] = 1.0
+        e = torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="slice 8b"):
+            pose_graph.optimize_pose_graph(
+                S, torch.zeros(K, dtype=torch.bool), torch.ones(K, dtype=torch.bool),
+                e, e + 1, S[:1], torch.ones(1, dtype=torch.bool))
         # stereo and monocular are ported (slice 6): a first frame runs
         for sensor in ("monocular", "stereo"):
             cfg = _cfg()
@@ -119,7 +137,7 @@ def test_slice_parity_with_reference(rgbd_sequence):
 
     frames, _ = rgbd_sequence
     ref = JSlamSystem(_cfg(jconfig), enable_loop_closing=False)
-    port = SlamSystem(_cfg(), device="cpu")
+    port = SlamSystem(_cfg(), enable_loop_closing=False, device="cpu")
     for i, (img, depth) in enumerate(frames[:12]):
         pj = ref.track_rgbd(img, depth, i / 30.0)
         pt = port.track_rgbd(img, depth, i / 30.0)

@@ -84,7 +84,7 @@ def test_slice_parity_with_reference(stereo_pairs):
                               extractor=mod.ExtractorConfig(n_features=500, n_levels=4))
 
     ref = JSlamSystem(cfg(jconfig), enable_loop_closing=False)
-    port = SlamSystem(cfg(tconfig), device="cpu")
+    port = SlamSystem(cfg(tconfig), enable_loop_closing=False, device="cpu")
     for i, (left, right) in enumerate(pairs):
         pj = ref.track_stereo(left, right, i / 30.0)
         pt = port.track_stereo(left, right, i / 30.0)

@@ -5,11 +5,15 @@ A port of ``orbslam2_tpu`` (the JAX reference package, which stays in the
 repository unchanged). The tree mirrors the reference one-to-one, so
 ``orbslam2_tpu.X.f`` has its counterpart at ``orbslam2_tpu_torch.X.f``:
 
-  system.py              SlamSystem facade (synchronous RGB-D path)
+  system.py              SlamSystem facade (synchronous RGB-D, stereo and
+                         monocular paths)
   tracking.py            Tracker: extraction -> fused tracking cascade
   local_mapping.py       LocalMapper: triangulation, fuse, local BA
+  loop_closing.py        LoopCloser: detection, Sim3, correction, essential
+                         graph, global BA
   map/state.py           host numpy map + device keyframe mirror
-  ops/                   extraction, matching, pose LM, BA, geometry
+  ops/                   extraction, matching, pose LM, BA, geometry, Sim3
+                         solvers, pose graph
   kernels/               CUDA C++ kernels (csrc/), their wrappers, plain
                          PyTorch twins and launch counters
 

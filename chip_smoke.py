@@ -615,7 +615,7 @@ def ba_rows(dev, record):
     LM iteration of the local-BA window (K=16, M=1024, O=8), then the whole
     schedule against the plain schedule at both shapes."""
     from orbslam2_tpu_torch.kernels import (ba_accept, ba_linearize, ba_solve,
-                                            ba_update_cost)
+                                            ba_solve_blocked, ba_update_cost)
     from orbslam2_tpu_torch.models.camera import Camera
     from orbslam2_tpu_torch.ops import ba
     from orbslam2_tpu_torch.utils import ba_parity
@@ -686,10 +686,10 @@ def ba_rows(dev, record):
            f"torch.linalg.cholesky + torch.cholesky_solve of the damped system",
            library_ms=library_solve(lin_k, prob, lam),
            # S, b_S, masks and poses read once, steps and poses written;
-           # n^3/3 multiply-adds of the Cholesky, two triangular solves,
-           # the symmetrisation, ~200 ops per camera for se3_exp(dc) @ T
+           # the Cholesky and its two triangular solves, the
+           # symmetrisation, ~200 ops per camera for se3_exp(dc) @ T
            n_bytes=nbytes(*f_args, dc_k, pn_k),
-           n_ops=2 * n ** 3 // 3 + 2 * n * n + n * n + 200 * K)
+           n_ops=cholesky_ops(n) + n * n + 200 * K)
 
     # G: back-substitution and trial cost, fed the kernels' step
     step = (dc_k, lin_k.E, lin_k.Dinv, lin_k.b_l)
@@ -756,9 +756,22 @@ def ba_rows(dev, record):
                                         prob.obs_kf, prob.obs_uvr, prob.obs_sigma2,
                                         prob.obs_valid, lam, True)
         f_lib = library_solve(lin, prob, lam)
+        f_args = (lin.S, lin.b_S, prob.opt_mask, lam, prob.poses)
         f_name = "F" if K <= ba_solve.MAX_SINGLE_K else "F'"
-        f_ms = cuda_ms(lambda: ba_solve.ba_solve(lin.S, lin.b_S, prob.opt_mask, lam,
-                                                 prob.poses))
+        f_ms = cuda_ms(lambda: ba_solve.ba_solve(*f_args))
+        if K <= ba_solve.MAX_SINGLE_K:
+            # F' on F's system: the readings that keep both (PERF.md)
+            per = ba_solve_blocked.launches_per_solve(6 * K) + 2
+            run_f = lambda: ba_solve.ba_solve(*f_args)  # noqa: E731
+            run_b = lambda: ba_solve_blocked.ba_solve_blocked(*f_args)  # noqa: E731
+            dev_f = device_ms(run_f, ba_solve.FUNCTION)
+            dev_b = device_ms(run_b, ba_solve_blocked.FUNCTION, per_call=per)
+            seen, launched = profile_gaps.pop(ba_solve_blocked.FUNCTION, (0, 0))
+            part = (f", from a profile that recorded {seen} of {launched} launches"
+                    if launched else "")
+            print(f"solve K={K} (6K={6 * K}): kernel F {f_ms:.4f} ms (device "
+                  f"{dev_f:.4f} ms) vs kernel F' {cuda_ms(run_b):.4f} ms (device "
+                  f"{dev_b:.4f} ms, {per} launches{part})")
         print(f"ba K={K} M={M} O=8 iters={iters}+outlier round: kernels "
               f"{ms_k:.3f} ms ({dev_k:.3f} ms on the device) vs plain "
               f"{ms_p:.3f} ms; poses max diff {got['poses']:.2e}, points rel "
@@ -1593,10 +1606,10 @@ def blocked_rows(dev, record):
            library_ms=cuda_ms(lambda: torch.cholesky_solve(
                b_S[:, None], torch.linalg.cholesky(Sd))),
            # S, b_S, masks and poses read once, steps and poses written;
-           # n^3/3 multiply-adds of the factorization, two triangular
-           # solves, the damping, ~200 ops per camera for se3_exp(dc) @ T
+           # the factorization and its two triangular solves, the damping,
+           # ~200 ops per camera for se3_exp(dc) @ T
            n_bytes=nbytes(*f_args, dk, pk),
-           n_ops=2 * n ** 3 // 3 + 2 * n * n + n * n + 200 * K,
+           n_ops=cholesky_ops(n) + n * n + 200 * K,
            per_call=ba_solve_blocked.launches_per_solve(n) + 2)
 
     # P at the dense limit, against the plain version
@@ -1719,6 +1732,30 @@ def loop_path(dev):
     return counts, {k: c.args for k, c in caps.items()}, fields
 
 
+# Float operations of csrc/sim3.cuh's routines, counted from its source
+# (an add, multiply, divide, compare, root or transcendental is one; the
+# branch a value takes in the general case): quat_to_rotmat 52, matmul3 45,
+# rotmat_to_quat 38, so3_exp 97, sim3_W 125, so3_log 27, solve3 40.
+SIM3_COMPOSE = 2 * 52 + 45 + 21 + 1 + 38
+SIM3_INVERSE = 52 + 2 + 19 + 38
+SIM3_EXP = 125 + 97 + 15 + 38
+SIM3_LOG = 2 + 52 + 27 + 125 + 40
+# csrc/pose_graph.cu's edge residual log(S_ij exp(d_j) exp(x_j) M_ij
+# exp(-x_i) exp(-d_i)): 5 compositions, 4 exponentials, 21 sign changes
+# and scalings, the logarithm (2412 operations)
+EDGE_RES = 5 * SIM3_COMPOSE + 4 * SIM3_EXP + 21 + SIM3_LOG
+# a Dual<7> operation against its float one: an add 8 operations, a
+# multiply 22, a divide 23, a function ~10; weighed over the residual's mix
+# (about half multiplies, two fifths adds), 15
+DUAL7 = 15
+
+
+def cholesky_ops(n):
+    """Operations of a Cholesky factorization of n unknowns (n^3/6
+    multiply-adds) and its two triangular solves (n^2/2 each)."""
+    return n ** 3 // 3 + 2 * n * n
+
+
 def loop_rows(dev, record, args):
     """Kernels K, M (search and LM), P, F' and C's octave-window variant
     against their plain versions on the arguments the loop path gave them,
@@ -1732,7 +1769,7 @@ def loop_rows(dev, record, args):
     # K: inlier sets >= 99% equal, S12 within 1e-4, counts within 1%
     a, kw = args["K"]
     cam = a[0]
-    n, n_samples = a[1].shape[0], a[6].shape[0]
+    n, n_samples, n_match = a[1].shape[0], a[6].shape[0], int(a[5].sum())
     rk = sim3_ransac.unpack(sim3_ransac.sim3_ransac(*a, **kw).cpu().numpy(), n)
     rp = sim3_ransac.unpack(sim3_ransac.sim3_ransac_plain(*a, **kw).cpu().numpy(), n)
     err_k = float(np.abs(rk.S12 - rp.S12).max())
@@ -1751,17 +1788,17 @@ def loop_rows(dev, record, args):
 
     record(sim3_ransac, err_k, lambda: sim3_ransac.sim3_ransac(*a, **kw),
            cuda_ms(lambda: sim3_ransac.sim3_ransac_plain(*a, **kw)),
-           f"N={n} ({int(a[5].sum())} matched), {n_samples} hypotheses, "
+           f"N={n} ({n_match} matched), {n_samples} hypotheses, "
            f"fix_scale={kw.get('fix_scale')}: {rk.n_inliers} vs {rp.n_inliers} "
            f"inliers, inlier sets agree {agree:.4f}, S12 max diff {err_k:.2e}; "
            f"library: torch.linalg.eigh of {n_samples} 4x4 matrices",
            library_ms=cuda_ms(horn_eigh),
            # points, sigmas, validity and samples read once, the packed
-           # result written; per hypothesis and point two Sim3 applications,
-           # two projections pairs and chi2 (~70 ops), the refit's sums and
-           # recounts (~300 per point)
+           # result written; per hypothesis and matched point (the kernel
+           # skips the rest) two Sim3 applications, two projections and
+           # chi2 (~70 ops), the refit's sums and recounts (~300 per point)
            n_bytes=nbytes(*a[1:7]) + 4 * (10 + n),
-           n_ops=70 * n_samples * n + 300 * n, per_call=2)
+           n_ops=70 * n_samples * n_match + 300 * n_match, per_call=2)
 
     # M's search: idx2 and mutual bit-exact
     a, kw = args["M_search"]
@@ -1770,8 +1807,8 @@ def loop_rows(dev, record, args):
     check(torch.equal(ik, ip) and torch.equal(mk, mp), "kernel M's search differs")
     cam, S12 = a[0], a[1]
     pairs = gates = 0
-    for parts, src, dst in ((sim3_ops.sim3_parts(geo.sim3_inverse(S12)), a[2:8], a[8:14]),
-                            (sim3_ops.sim3_parts(S12), a[8:14], a[2:8])):
+    parts21, parts12 = sim3_ops.search_parts(S12)
+    for parts, src, dst in ((parts21, a[2:8], a[8:14]), (parts12, a[8:14], a[2:8])):
         rows, pair = sim3_ops.direction_pairs(cam, parts, src[0], src[3], dst[4],
                                               dst[5], a[14], a[15])
         rows = rows & src[2]
@@ -1849,7 +1886,7 @@ def loop_rows(dev, record, args):
     err_c, err_r = pose_diff(pk.poses, pp.poses, a[2])
     check(err_c <= 1e-3 and err_r <= 1e-3,
           f"kernel P: centres {err_c} m, rotations {err_r} rad")
-    K, E = a[0].shape[0], a[3].shape[0]
+    K, E, E_valid = a[0].shape[0], a[3].shape[0], int(a[6].sum())
     n = 7 * K
     iters = kw.get("iters", 20)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1867,13 +1904,24 @@ def loop_rows(dev, record, args):
            library_ms=cuda_ms(lambda: torch.cholesky_solve(
                rhs, torch.linalg.cholesky(A_spd))),
            function=None,
-           # the graph read once, the poses written; per iteration and edge
-           # two dual-number linearizations (~2 x 100k ops) and the blocks'
-           # products (~2.4k), the factorization n^3/3 multiply-adds, the
-           # solves, and the cost at the trial (~20k per edge)
+           # the graph read once, the poses written; the start: four costs
+           # over the valid edges, each edge's base-relative transform, per
+           # vertex its centre, chain link, re-integration and ramp (7
+           # compositions, 2 inverses, 2 exponentials, 2 logarithms); per
+           # iteration and valid edge the residual in two Dual<7> passes,
+           # the gradient's and three 7x7 blocks' products (2254) and the
+           # trial cost's residual; the system's lower triangle, the
+           # factorization and solves, per vertex the step (2 exponentials,
+           # a composition, a logarithm); at the end 2 compositions and an
+           # exponential a vertex
            n_bytes=nbytes(*a) + 4 * (8 * K + 1),
-           n_ops=iters * (E * (200000 + 2400 + 20000) + 2 * n ** 3 // 3
-                          + 4 * n * n))
+           n_ops=(4 * E_valid * EDGE_RES + E * (SIM3_COMPOSE + SIM3_INVERSE)
+                  + K * (7 * SIM3_COMPOSE + 2 * SIM3_INVERSE + 2 * SIM3_EXP
+                         + 2 * SIM3_LOG + 120)
+                  + iters * (E_valid * (EDGE_RES * (2 * DUAL7 + 1) + 2254)
+                             + n * n // 2 + cholesky_ops(n)
+                             + K * (2 * SIM3_EXP + SIM3_COMPOSE + SIM3_LOG))
+                  + K * (2 * SIM3_COMPOSE + SIM3_EXP)))
 
 
 def pose_diff(Sa, Sb, valid):

@@ -332,7 +332,21 @@ struct Side {
   int n;
 };
 
-__global__ void sim3_search_kernel(Side a, Side b, const float* __restrict__ parts,
+// (s, R, t) of S21 = S12^-1 (fwd) or of S12, the inverse's rotation through
+// its quaternion (ops/sim3_opt.search_parts writes the same terms)
+__device__ void search_parts(const float* S12, bool fwd, float P[13]) {
+  Sim3<float> S = osl::sim3_load<float>(S12);
+  if (fwd) S = osl::sim3_inverse(S);
+  float R[3][3];
+  osl::quat_to_rotmat(S.q, R);
+  P[0] = S.s;
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) P[1 + 3 * i + j] = R[i][j];
+    P[10 + i] = S.t[i];
+  }
+}
+
+__global__ void sim3_search_kernel(Side a, Side b, const float* __restrict__ S12,
                                    Cam cam, float log_sf,
                                    const float* __restrict__ r_table,
                                    int n_levels, int* __restrict__ idx12,
@@ -344,7 +358,8 @@ __global__ void sim3_search_kernel(Side a, Side b, const float* __restrict__ par
   const Side& src = fwd ? a : b;
   const Side& dst = fwd ? b : a;
   const int i = fwd ? row : row - a.n;
-  const float* P = parts + (fwd ? 13 : 0);  // S21 for a's points, S12 for b's
+  float P[13];  // S21 for a's points, S12 for b's
+  search_parts(S12, fwd, P);
   const float X = src.pos[3 * i], Y = src.pos[3 * i + 1], Z = src.pos[3 * i + 2];
   float pc[3];
   for (int k = 0; k < 3; ++k) {
@@ -428,7 +443,7 @@ OSL_EXPORT int osl_sim3_search(
     const float* dmax1, const float* xy1, const int* oct1, int n1,
     const float* pos2, const uint8_t* desc2, const uint8_t* valid2,
     const float* dmax2, const float* xy2, const int* oct2, int n2,
-    const float* parts, float fx, float fy, float cx, float cy, int width,
+    const float* S12, float fx, float fy, float cx, float cy, int width,
     int height, float log_sf, const float* r_table, int n_levels, int* idx12,
     int* idx21, int* idx2, uint8_t* mutual, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -438,7 +453,7 @@ OSL_EXPORT int osl_sim3_search(
   const int rows = n1 + n2;
   if (rows > 0) {
     sim3_search_kernel<<<(rows * 32 + 255) / 256, 256, 0, st>>>(
-        a, b, parts, cam, log_sf, r_table, n_levels, idx12, idx21);
+        a, b, S12, cam, log_sf, r_table, n_levels, idx12, idx21);
   }
   if (n1 > 0) {
     sim3_search_agree<<<(n1 + 255) / 256, 256, 0, st>>>(idx12, idx21, n1, idx2, mutual);

@@ -6,9 +6,10 @@ directions of Sim3 projection with the radius 7.5 sf^pred and the octave
 window [pred - 1, pred + 1], TH_HIGH, no ratio, then the agreement check).
 CUDA source: ``csrc/sim3_opt.cu`` (``sim3_search_kernel``: a warp per source
 row of both directions, as kernel C, no (P, N) matrix stored;
-``sim3_search_agree``: a thread per feature of image 1). S12 and S21 reach
-the kernel as the (s, R, t) the plain version (``ops/sim3_opt.py``)
-computes; idx2 and mutual are bit-exact against it.
+``sim3_search_agree``: a thread per feature of image 1). Each warp derives
+its direction's (s, R, t) from S12 with ``csrc/sim3.cuh``, as the plain
+version (``ops/sim3_opt.search_parts``) writes it term by term; idx2 and
+mutual are bit-exact against it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import torch
 
 from . import build, scale
 from ..models.camera import Camera
-from ..ops import geometry as geo
 from ..ops import sim3_opt
 
 NAME = "sim3_search"
@@ -61,9 +61,6 @@ def search_by_sim3(cam: Camera, S12, pos1, desc1, valid1, dmax1, xy1, oct1,
                   ("xy" + tag, xy, torch.float32, (n, 2)),
                   ("oct" + tag, octv, torch.int32, (n,))]
     build.expect(NAME, dev, specs)
-    # (s, R, t) of S12 then of S21, as the plain version computes them
-    parts = torch.cat([torch.cat([s.reshape(1), R.reshape(9), t]) for s, R, t in (
-        sim3_opt.sim3_parts(S12), sim3_opt.sim3_parts(geo.sim3_inverse(S12)))])
     i32 = dict(dtype=torch.int32, device=dev)
     idx12, idx21 = torch.empty(n1, **i32), torch.empty(n2, **i32)
     idx2 = torch.empty(n1, **i32)
@@ -72,7 +69,7 @@ def search_by_sim3(cam: Camera, S12, pos1, desc1, valid1, dmax1, xy1, oct1,
         pos1.data_ptr(), desc1.data_ptr(), valid1.data_ptr(), dmax1.data_ptr(),
         xy1.data_ptr(), oct1.data_ptr(), n1, pos2.data_ptr(), desc2.data_ptr(),
         valid2.data_ptr(), dmax2.data_ptr(), xy2.data_ptr(), oct2.data_ptr(), n2,
-        parts.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+        S12.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
         scale.log_sf(scale_factor),
         scale.table(scale_factor, "pow", dev, sim3_opt.RADIUS_MULT).data_ptr(),
         int(n_levels), idx12.data_ptr(), idx21.data_ptr(), idx2.data_ptr(),

@@ -170,8 +170,17 @@ def apply_se3(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 # Quaternions (w, x, y, z)
 # ---------------------------------------------------------------------------
 
+def _unit_quat(q: torch.Tensor) -> torch.Tensor:
+    """q over its norm (at least _EPS), the squares summed in order, as
+    csrc/sim3.cuh does, so that kernel M's search and its plain version
+    derive the same rotations."""
+    n = torch.sqrt(q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]
+                   + q[..., 2] * q[..., 2] + q[..., 3] * q[..., 3])
+    return q / n.clamp_min(_EPS)[..., None]
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
-    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
+    q = _unit_quat(q)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     rows = [
         [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
@@ -206,7 +215,7 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx[..., None, None].expand(
         idx.shape + (1, 4)))[..., 0, :]
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
-    return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
+    return _unit_quat(q)
 
 
 # ---------------------------------------------------------------------------

@@ -115,10 +115,18 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
     return Sim3OptResult(S12=S, inliers=inl, n_inliers=inl.to(torch.int32).sum())
 
 
-def sim3_parts(S):
-    """(s (), R (3, 3), t (3,)) of a Sim3 vector, the operands kernel M's
-    search reads."""
-    return geo.sim3_s(S), geo.sim3_R(S), geo.sim3_t(S)
+def search_parts(S12):
+    """((s, R, t) of S21 = S12^-1, (s, R, t) of S12): the transforms of the
+    two directions, from the (8,) S12 as kernel M derives them on the
+    device with csrc/sim3.cuh (the inverse's translation term by term, its
+    rotation through its quaternion, as geometry.sim3_inverse)."""
+    s, R, t = geo.sim3_s(S12), geo.sim3_R(S12), geo.sim3_t(S12)
+    s_inv = 1.0 / s.clamp_min(geo._EPS)
+    Rt = R.T
+    t_inv = torch.stack([-s_inv * (Rt[i, 0] * t[0] + Rt[i, 1] * t[1] + Rt[i, 2] * t[2])
+                         for i in range(3)])
+    S21 = geo.sim3_make(s_inv, Rt, t_inv)
+    return (geo.sim3_s(S21), geo.sim3_R(S21), geo.sim3_t(S21)), (s, R, t)
 
 
 def direction_pairs(cam: Camera, parts, pos_src, dmax_src, kp_xy_dst,
@@ -168,10 +176,11 @@ def search_by_sim3(cam: Camera, S12, pos1_c, desc1, valid1, dmax1, kp_xy1,
                    radius_mult: float = RADIUS_MULT):
     """(idx2 (N1,) int32, mutual (N1,) bool): the feature of image 2 each
     feature of image 1 matches where both directions agree, else -1."""
-    res12 = one_direction(cam, sim3_parts(geo.sim3_inverse(S12)), pos1_c, dmax1, desc1,
-                          valid1, kp_xy2, kp_oct2, desc2, valid2, scale_factor,
-                          n_levels, radius_mult)
-    res21 = one_direction(cam, sim3_parts(S12), pos2_c, dmax2, desc2, valid2, kp_xy1,
+    parts21, parts12 = search_parts(S12)
+    res12 = one_direction(cam, parts21, pos1_c, dmax1, desc1, valid1, kp_xy2,
+                          kp_oct2, desc2, valid2, scale_factor, n_levels,
+                          radius_mult)
+    res21 = one_direction(cam, parts12, pos2_c, dmax2, desc2, valid2, kp_xy1,
                           kp_oct1, desc1, valid1, scale_factor, n_levels,
                           radius_mult)
     i1 = torch.arange(pos1_c.shape[0], dtype=torch.int32, device=pos1_c.device)

@@ -100,45 +100,140 @@ class TestLoopClosing:
                        for kf in range(4))
 
 
-def test_loop_closing_slice_parity(closed, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_closed():
+    """The JAX LoopCloser over the same drifted circle, run as the port's is
+    in ``closed``: (closer, map, closing keyframes, loop pair, the RANSAC's
+    and the refinement's inlier counts, the first draw of the port's
+    generator after the closers' state was carried across, the same draw
+    from the reference's seed)."""
+    from orbslam2_tpu.loop_closing import LoopCloser as JLoopCloser
+    from orbslam2_tpu.map.keyframe_database import KeyFrameDatabase as JKeyFrameDatabase
+    from orbslam2_tpu.ops import sim3_opt as jsim3_opt
+    from orbslam2_tpu.ops import sim3_solver as jsim3_solver
+
+    jcfg, jm, jcam, _ = build_drifted_loop(np.random.default_rng(0))
+    jlc = JLoopCloser(jcfg, jm, jcam, JKeyFrameDatabase(jm))
+    fresh = set_loop_closer_state(_port_closer(jm), dict(
+        consistent_groups=jlc.consistent_groups, last_loop_kf=jlc.last_loop_kf,
+        loops_closed=jlc.loops_closed, rng_state=jlc._rng.bit_generator.state))
+    draws = (fresh._rng.integers(0, 1 << 30),
+             np.random.default_rng(jcfg.runtime.seed + 1).integers(0, 1 << 30))
+    seen = {}
+    j_closures, j_pair = [], None
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, key in ((jsim3_solver, "sim3_ransac", "ransac_inliers"),
+                               (jsim3_opt, "optimize_sim3", "refined_inliers")):
+            def wrapped(*a, _f=getattr(mod, name), _k=key, **k):
+                res = _f(*a, **k)
+                seen[_k] = int(res.n_inliers)
+                return res
+            mp.setattr(mod, name, wrapped)
+        for kf in jm.valid_keyframes():
+            if jlc.process_keyframe(int(kf), run_global_ba=False):
+                j_closures.append(int(kf))
+                j_pair = jm.loop_edges[-1]
+    return jlc, jm, j_closures, j_pair, seen, draws
+
+
+def test_loop_closing_slice_parity(closed, jax_closed):
     """The same drifted map through the JAX LoopCloser and the port's, the
     closers' state carried across (utils/convert.set_loop_closer_state):
     the same loop pair closes at the same keyframe, with the same RANSAC and
     refined inlier counts (+-1: a pair at the chi2 gate may fall either
     side in float32), and the corrected keyframe poses within 1e-3 (the
     pose graphs agree to that, test_torch_pose_graph.py)."""
-    from orbslam2_tpu.loop_closing import LoopCloser as JLoopCloser
-    from orbslam2_tpu.map.keyframe_database import KeyFrameDatabase as JKeyFrameDatabase
-    from orbslam2_tpu.ops import sim3_opt as jsim3_opt
-    from orbslam2_tpu.ops import sim3_solver as jsim3_solver
-
     lc, closures, _ = closed
-    jcfg, jm, jcam, _ = build_drifted_loop(np.random.default_rng(0))
-    jlc = JLoopCloser(jcfg, jm, jcam, JKeyFrameDatabase(jm))
-    fresh = set_loop_closer_state(_port_closer(jm), dict(
-        consistent_groups=jlc.consistent_groups, last_loop_kf=jlc.last_loop_kf,
-        loops_closed=jlc.loops_closed, rng_state=jlc._rng.bit_generator.state))
-    assert fresh._rng.integers(0, 1 << 30) == np.random.default_rng(
-        jcfg.runtime.seed + 1).integers(0, 1 << 30)
-    seen = {}
-    for mod, name, key in ((jsim3_solver, "sim3_ransac", "ransac_inliers"),
-                           (jsim3_opt, "optimize_sim3", "refined_inliers")):
-        def wrapped(*a, _f=getattr(mod, name), _k=key, **k):
-            res = _f(*a, **k)
-            seen[_k] = int(res.n_inliers)
-            return res
-        monkeypatch.setattr(mod, name, wrapped)
-    j_closures, j_pair = [], None
-    for kf in jm.valid_keyframes():
-        if jlc.process_keyframe(int(kf), run_global_ba=False):
-            j_closures.append(int(kf))
-            j_pair = jm.loop_edges[-1]
+    _, jm, j_closures, j_pair, seen, draws = jax_closed
+    assert draws[0] == draws[1]
     assert [int(k) for k in closures] == j_closures
     assert tuple(lc.map.loop_edges[-1]) == tuple(j_pair)
     assert abs(lc.last_stats["ransac_inliers"] - seen["ransac_inliers"]) <= 1
     assert abs(lc.last_stats["refined_inliers"] - seen["refined_inliers"]) <= 1
     kfs = jm.valid_keyframes()
     np.testing.assert_allclose(lc.map.kf_pose[kfs], jm.kf_pose[kfs], atol=1e-3)
+
+
+def _gathers_equal(jsnap, psnap):
+    """The JAX gather (padded to its bucket) and the port's (live size) hold
+    the same keyframes, the same one fixed, the same points and
+    observations; returns the live size (K, M)."""
+    jprob, jkfs, jmp, jopt, jn = jsnap
+    pprob, pkfs, pmp, popt, pn = psnap
+    K = len(pkfs)
+    assert list(jkfs) == list(pkfs) and jn == pn
+    np.testing.assert_array_equal(jmp, pmp)
+    np.testing.assert_array_equal(jopt[:K], popt)
+    assert not popt[0] and popt[1:].all()
+    for name, n in (("poses", K), ("opt_mask", K), ("points", pn),
+                    ("point_valid", pn), ("obs_kf", pn), ("obs_uvr", pn),
+                    ("obs_sigma2", pn), ("obs_valid", pn)):
+        np.testing.assert_array_equal(np.asarray(getattr(jprob, name))[:n],
+                                      getattr(pprob, name).numpy(), err_msg=name)
+    return K, pn
+
+
+def test_gba_matches_reference(jax_closed):
+    """Global BA on the JAX closer's closed circle, carried into the port,
+    against the JAX LoopCloser's, piece by piece.
+
+    The gathers are equal (the reference's padded to its (32, 4096)
+    bucket, compared on the live part): the same keyframes, the same one
+    fixed, the same points and observations. The solves (3 iterations)
+    agree within poses 2e-2, points 1e-2 relative, cost 1.5e-2 relative and
+    no more inlier flips than tests/test_torch_ba.py's 0.1%. That is not
+    test_torch_ba.py's 1e-4, because this problem (about two observations
+    a point; the poses move by up to 0.54 in 3 iterations) spreads under
+    any change of summation order: the port's own solve of it, padded to
+    the bucket or at the live size, differs by 4.8e-3 in the poses and
+    1.8e-3 in the points, the two packages by 7.7e-3 and 2.9e-3, with cost
+    4.6e-3 relative and no flip (measured). test_torch_ba.py holds the
+    solve to 1e-4 on well-posed windows.
+
+    Then two consecutive keyframes of the circle's middle are left out of a
+    second gather in both and restored before the write-back, as keyframes
+    a solve did not see, so the write-back's spanning-tree propagation
+    moves them (the second through the first) and the points only they
+    observe. Each write-back, given the JAX solve of that gather, leaves
+    the same map: poses and points within 1e-5."""
+    jlc, jm = jax_closed[:2]
+    plc = _port_closer(jm)
+    pm = plc.map
+    jsnap, psnap = jlc._gba_gather(None, None, 8), plc._gba_gather(8)
+    K, n = _gathers_equal(jsnap, psnap)
+    jres = jlc._gba_solve(jsnap[0], 3, False)
+    pres = plc._gba_solve(psnap[0], 3)
+    np.testing.assert_allclose(pres.poses.numpy(), np.asarray(jres.poses)[:K],
+                               atol=2e-2)
+    np.testing.assert_allclose(pres.points.numpy(), np.asarray(jres.points)[:n],
+                               rtol=1e-2, atol=1e-2)
+    assert (pres.obs_inlier.numpy()
+            != np.asarray(jres.obs_inlier)[:n]).mean() <= 1e-3
+    np.testing.assert_allclose(float(pres.cost), float(jres.cost), rtol=1.5e-2)
+
+    in_order = sorted((int(k) for k in jm.valid_keyframes()),
+                      key=lambda k: int(jm.kf_seq[k]))
+    left_out = in_order[len(in_order) // 2:][:2]
+    for m in (jm, pm):
+        m.kf_valid[left_out] = False
+    jsnap, psnap = jlc._gba_gather(None, None, 8), plc._gba_gather(8)
+    for m in (jm, pm):
+        m.kf_valid[left_out] = True
+    K, n = _gathers_equal(jsnap, psnap)
+    assert not set(left_out) & set(psnap[1])
+    assert len(np.setdiff1d(pm.valid_map_points(), psnap[2])) > 0
+    jres = jlc._gba_solve(jsnap[0], 3, False)
+    poses, points = np.asarray(jres.poses), np.asarray(jres.points)
+    before = pm.kf_pose[left_out].copy()
+    jlc._gba_write_back(jsnap[1], jsnap[3], poses, jsnap[2], points[:n])
+    plc._gba_write_back(psnap[1], psnap[3], poses[:K], psnap[2], points[:n])
+    assert (np.abs(pm.kf_pose[left_out] - before).max((1, 2)) > 1e-4).all()
+    kfs = jm.valid_keyframes()
+    np.testing.assert_array_equal(pm.valid_keyframes(), kfs)
+    np.testing.assert_allclose(pm.kf_pose[kfs], jm.kf_pose[kfs], atol=1e-5)
+    mps = jm.valid_map_points()
+    np.testing.assert_array_equal(pm.valid_map_points(), mps)
+    np.testing.assert_allclose(pm.mp_pos[mps], jm.mp_pos[mps], atol=1e-5)
 
 
 def test_gba_padded_matches_live_size(closed):

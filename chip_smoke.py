@@ -72,17 +72,46 @@ Phases, each printing one line:
      the ms of each synchronised stage of the closure and the GBA's K, M and
      iterations; K, M's search (bit-exact) and LM, P, F' and C's
      octave-window variant (bit-exact) against their plain versions on the
-     arguments the path gave them.
+     arguments the path gave them;
+  8. loop closing at map scale (scale_path): tests/test_capacity_scale.py's
+     corridor built by utils/synthetic.corridor_map at the RGB-D path's
+     camera and extractor (1300 keyframes, 120 new points a keyframe each
+     seen by 8, depths 7-14 m), then LoopCloser.global_bundle_adjustment
+     (obs_cap=8) with the reference's sweep geometry (7 windows of 256,
+     overlap 64, ~31.5k points a window) to the reference test's bounds
+     (RMS centre error after < 0.3 x before, over all keyframes and the
+     oldest 1044; finite; the sweep print), and on a copy of the map taken
+     before the sweep, its poses drifted 4 mm a link and a loop edge from
+     the last keyframe to the first, LoopCloser._optimize_essential_graph
+     through kernel P' (n_kf = 1300), the far end's error below 0.3 x its
+     start (PG_GAIN_LOOP); exactly the kernels of PATHS["scale"]; a "scale" line with the
+     milliseconds of each stage (map build, each window's gather, solve and
+     write-back, the propagation, P' wall and device), P''s CG iterations
+     per LM iteration, the windows' sizes and the card. Then P' against its
+     plain version on the reference's two 2000-vertex graphs (the circle
+     within 2e-3, both to the reference's assertions), against P forced
+     dense on rings of 384 and 385 keyframes (within 2e-3, both timed in
+     turns), and on the loop closer's graph (its first two LM iterations
+     within 2e-3; no (7K)^2 allocation), and the sweep's first window
+     against the plain BA schedule (each reading within the larger of
+     utils/ba_parity.LIMITS and 3 x the kernels' own run-to-run spread on
+     that window, measured in the same run; the cost, at float32 rounding
+     there, also within (1e-3 px)^2 an observation).
 Phase 3 also holds the BA schedule at the largest global-BA bucket (K=256,
 M=32768, O=8, kernel F' solving), F' beside the library's Cholesky solve
-at 6K=1536, and P on a drifted 384-keyframe ring against its plain
-version. Then the kernels as one JSON line (times, launches summed over the paths,
+at 6K=1536, P on a drifted 384-keyframe ring against its plain version,
+and counts by profiler kernel P''s launches in a 2- and a 4-iteration
+call on the 2000-vertex circle (the same launches every LM iteration,
+whatever its CG iterations). Then the kernels as one JSON line (times, launches summed over the paths,
 the bound from this run's inputs), the card again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX.
 """
 
 import contextlib
+import copy
+import dataclasses
+import io
 import json
 import os
 import statistics
@@ -132,6 +161,10 @@ PATHS = {
     "loop": FRONT + ("rgbd_depth",) + CASCADE + MAPPING
     + ("bow_words", "match_rot", "sim3_ransac", "sim3_search", "sim3_opt",
        "pose_graph", "ba_solve_blocked"),
+    # exactly these: the 1300-keyframe sweep (E, F', G, H) and the
+    # essential graph at n_kf = 1300 (P', then N on the moved points)
+    "scale": ("ba_linearize", "ba_solve_blocked", "ba_update_cost", "ba_accept",
+              "pose_graph_cg", "point_attrs"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores; every kernel here is float32 or
@@ -1929,13 +1962,460 @@ def pose_diff(Sa, Sb, valid):
     valid vertices of two (K, 8) Sim3 sets."""
     from orbslam2_tpu_torch.ops import geometry as geo
 
-    def centres(S):
-        R, t, s = geo.sim3_R(S), geo.sim3_t(S), geo.sim3_s(S)
-        return -(R.transpose(-1, -2) @ t[..., None])[..., 0] / s[:, None]
-
-    dc = (centres(Sa) - centres(Sb)).norm(dim=1)[valid]
+    dc = (centre(Sa) - centre(Sb)).norm(dim=1)[valid]
     dR = geo.sim3_R(Sa).transpose(-1, -2) @ geo.sim3_R(Sb)
     return dc.max().item(), geo.so3_log(dR).norm(dim=1)[valid].max().item()
+
+
+# the scale phase's map (tests/test_capacity_scale.py::TestGbaSweep's
+# corridor at the RGB-D main path's camera and extractor): 1300 keyframes,
+# 120 new points a keyframe each seen by 8 (so ~31.5k points in a window of
+# 256 and O = 8), depths 7-14 m so that the last of the 8 observers (5.6 m
+# further along) still sees each point in front
+SCALE_KFS = 1300
+SCALE_P_NEW = 120
+SCALE_SPAN = 8
+SCALE_DEPTH = (7.0, 14.0)
+SCALE_GAIN = 0.3       # the reference sweep test's: error after < 0.3 x before
+SCALE_OLDEST = 1044    # the keyframes a newest-256 truncation never touches
+PG_GAIN = 0.2          # the reference graph tests': far end < 0.2 x its start
+# the loop closer's graph of the scale map: covisibility to 7 neighbours at
+# every keyframe against one identity-weighted loop edge leaves ~0.1 of the
+# far end's drift at the least-squares optimum, and the float32 CG at its
+# 600-iteration cap spreads the result: far end after / before 0.056-0.125
+# for the plain version (CPU, card, start moved by 1e-7), 0.071 for the JAX
+# package, 0.065-0.206 over 8 runs of kernel P' (PERF.md section 7)
+PG_GAIN_LOOP = 0.3
+PG_TOL = 2e-3          # the reference's test_cg_matches_dense tolerance
+# drift of each odometry link of the essential-graph case (m along the
+# camera's z, the corridor's forward axis)
+SCALE_DRIFT = 0.004
+
+
+def centre(S):
+    """Camera centres of (..., 8) Sim3 vectors."""
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    R, t, s = geo.sim3_R(S), geo.sim3_t(S), geo.sim3_s(S)
+    return -(R.transpose(-1, -2) @ t[..., None])[..., 0] / s[..., None]
+
+
+def rms_centre_error(m, kf_ids):
+    """RMS camera-centre error of ``kf_ids`` (the corridor's keyframes i =
+    0, 1, ... in creation order) against the corridor's true poses."""
+    from orbslam2_tpu_torch.utils.synthetic import corridor_pose
+
+    est = np.linalg.inv(m.kf_pose[kf_ids].astype(np.float64))[:, :3, 3]
+    gt = np.stack([np.linalg.inv(corridor_pose(i))[:3, 3]
+                   for i in range(len(kf_ids))])
+    return float(np.sqrt(((est - gt) ** 2).sum(1).mean()))
+
+
+def pose_graph_cg_ops(K, E_valid, its, iters):
+    """Operations of one P' call that ran ``its`` CG iterations in all: the
+    start as P's; per LM iteration each valid edge's residual in two
+    Dual<7> passes and its blocks and gradient (2254), each chain position's
+    pseudo-edge (two compositions, an inverse, two exponentials, its
+    residual in two Dual<7> passes), a 7x7 inverse (2n^3/3), M_fwd and
+    M_bwd (2 x 2 x 343), the trial cost and the step; per CG iteration the
+    matvec (4 x 2 x 49 an edge), the two recurrences and the two A^-1
+    applications (2 x 49 a vertex each), three dot products and the vector
+    updates (~12 a component)."""
+    per_lm = (E_valid * (EDGE_RES * (2 * DUAL7 + 1) + 2254)
+              + K * (2 * SIM3_COMPOSE + SIM3_INVERSE + 2 * SIM3_EXP
+                     + EDGE_RES * 2 * DUAL7 + 229 + 4 * 343)
+              + E_valid * EDGE_RES
+              + K * (2 * SIM3_EXP + SIM3_COMPOSE + SIM3_LOG))
+    per_cg = E_valid * 4 * 2 * 49 + K * 4 * 2 * 49 + 7 * K * (3 * 2 + 12)
+    start = (4 * E_valid * EDGE_RES + K * (7 * SIM3_COMPOSE + 2 * SIM3_INVERSE
+                                           + 2 * SIM3_EXP + 2 * SIM3_LOG + 120))
+    return start + iters * per_lm + its * per_cg + K * (2 * SIM3_COMPOSE + SIM3_EXP)
+
+
+def ba_iteration_bound(cam, prob):
+    """(ms, "bytes" | "operations") of one LM iteration of kernels E, F'
+    (or F), G and H on ``prob``, counted as in ba_rows: E's inputs and its
+    system read and written once with its operations per observation, pair
+    and landmark; F''s factorization and solves; G's back-substitution and
+    cost; H's state."""
+    from orbslam2_tpu_torch.kernels import ba_linearize
+
+    K, M = prob.poses.shape[0], prob.points.shape[0]
+    lam = torch.full((1,), 1e-4, device=prob.poses.device)
+    obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+    lin = ba_linearize.ba_linearize(cam, prob.poses, prob.points, *obs,
+                                    prob.obs_valid, lam, True)
+    mask = ba_linearize.effective_mask(prob.obs_kf, prob.obs_valid, prob.point_valid)
+    n_obs = int(mask.sum())
+    n_pairs = int((mask.sum(1) ** 2).sum())
+    n = 6 * K
+    n_bytes = (2 * nbytes(prob.poses, prob.points, *obs, prob.obs_valid)
+               + 2 * nbytes(*lin) + 2 * nbytes(prob.poses, prob.points))
+    n_ops = (680 * n_obs + 216 * n_pairs + 60 * M + cholesky_ops(n) + n * n
+             + 200 * K + 75 * n_obs + 21 * M + 3)
+    return bound(n_bytes, n_ops)
+
+
+def pose_graph_cg_launches(dev):
+    """Kernel P''s launches by profiler: on the reference's 2000-vertex circle
+    a 2- and a 4-iteration call launch the start and the end and then the
+    same kernels for every LM iteration (launches_per_iteration), whatever
+    its CG iterations: the whole CG solve of an LM iteration is one launch,
+    with no host round trip. Run early in the process: late in a long run
+    the profiler drops an event or a few from every profile (PERF.md
+    section 7)."""
+    from orbslam2_tpu_torch.kernels import pose_graph_cg
+    from orbslam2_tpu_torch.utils.synthetic import scale_graph
+
+    a, _ = scale_graph("circle")
+    a = [torch.from_numpy(x).to(dev) for x in a]
+    K = a[0].shape[0]
+    per_lm = pose_graph_cg.launches_per_iteration(K)
+    seen = []
+    for iters in (2, 4):
+        expected = 2 + iters * per_lm
+        for _ in range(3):
+            _, events = device_events(
+                lambda: pose_graph_cg.optimize_pose_graph(*a, iters=iters),
+                pose_graph_cg.FUNCTION, reps=1)
+            if events == expected:
+                break
+        its = pose_graph_cg.last_cg_iterations.cpu().tolist()
+        check(events == expected, f"P' launched {events} kernels in {iters} LM "
+              f"iterations, expected {expected} (2 + {iters} x {per_lm})")
+        seen.append(f"{iters} iterations (CG {its}): {events} kernels")
+    print(f"kernel pose_graph_cg launches (K={K}): " + "; ".join(seen)
+          + f"; 2 + {per_lm} an LM iteration, whatever its CG iterations")
+
+
+def scale_path(dev):
+    """Loop closing at map scale on the card: the reference's 1300-keyframe
+    global-BA sweep at the RGB-D main path's width and the essential graph
+    at n_kf = 1300, each through the LoopCloser's own method, the launch
+    counts set to 0 just before and read just after. Returns (counts, the
+    captured arguments of P' and of the first window's solve, the "scale"
+    line's fields)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import pose_graph_cg
+    from orbslam2_tpu_torch.loop_closing import LoopCloser
+    from orbslam2_tpu_torch.map.keyframe_database import KeyFrameDatabase
+    from orbslam2_tpu_torch.map.state import MapState
+    from orbslam2_tpu_torch.models.camera import Camera
+    from orbslam2_tpu_torch.ops import sim3_np
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.convert import map_state_from_numpy
+    from orbslam2_tpu_torch.utils.synthetic import (corridor_map, corridor_pose,
+                                                    integrate_drift)
+
+    t_phase = time.perf_counter()
+    cfg = slices.config("rgbd")
+    c = cfg.camera
+    cam = Camera.create(c.fx, c.fy, c.cx, c.cy, bf=c.bf, width=c.width,
+                        height=c.height)
+    t = time.perf_counter()
+    m = MapState.allocate(cfg, device=dev)
+    kf_ids = corridor_map(m, SCALE_KFS, c.fx, c.fy, c.cx, c.cy, p_new=SCALE_P_NEW,
+                          span=SCALE_SPAN, depth=SCALE_DEPTH)
+    build_ms = 1e3 * (time.perf_counter() - t)
+    # the essential graph's map: a copy taken before the sweep
+    snapshot = {f.name: copy.deepcopy(getattr(m, f.name))
+                for f in dataclasses.fields(m)
+                if f.name not in ("cfg", "lock", "dev_kf", "device")}
+    closer = LoopCloser(cfg, m, cam, KeyFrameDatabase(m, device=dev))
+    e_pre = rms_centre_error(m, kf_ids)
+    e_pre_old = rms_centre_error(m, kf_ids[:SCALE_OLDEST])
+
+    # each window's gather, solve and write-back, synchronised
+    marks = []
+    windows = []
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            marks.append((name, "start", time.perf_counter()))
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            marks.append((name, "end", time.perf_counter()))
+            if name == "gather" and r is not None:
+                windows.append(dict(K=len(r[1]), M=int(r[4]), prob=r[0]))
+            if name == "solve" and len(windows) == 1:
+                windows[0].update(args=(a, k), result=r)
+            return r
+        return wrapped
+
+    closer._gba_gather = timed("gather", closer._gba_gather)
+    closer._solve_chunked = timed("solve", closer._solve_chunked)
+    closer._propagate_unoptimized = timed("propagate", closer._propagate_unoptimized)
+    out = io.StringIO()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        closer.global_bundle_adjustment(obs_cap=SCALE_SPAN)
+    torch.cuda.synchronize()
+    sweep_ms = 1e3 * (time.perf_counter() - t)
+    printed = out.getvalue()
+    print(printed, end="")
+    e_post = rms_centre_error(m, kf_ids)
+    e_post_old = rms_centre_error(m, kf_ids[:SCALE_OLDEST])
+    # per window: gather, solve, and the write-back (the solve's end to the
+    # next gather or the propagation)
+    times = {"gather": [], "solve": [], "write_back": [], "propagate": []}
+    for i, (name, edge, at) in enumerate(marks):
+        if edge == "end":
+            start = next(s for n, e, s in reversed(marks[:i]) if n == name and e == "start")
+            times[name].append(1e3 * (at - start))
+            if name == "solve":
+                times["write_back"].append(1e3 * (marks[i + 1][2] - at))
+
+    # the essential graph at n_kf = 1300: the stored poses drifted along the
+    # chain (each odometry link moved by SCALE_DRIFT along z), a loop edge
+    # from the last keyframe to the first, the last keyframe's corrected
+    # pose its true one
+    m2 = map_state_from_numpy(cfg, snapshot, device=dev)
+    S = sim3_np.from_se3(m2.kf_pose[kf_ids].astype(np.float32))
+    links = sim3_np.compose(S[1:], sim3_np.inverse(S[:-1])).astype(np.float32)
+    drift = np.zeros(7, np.float32)
+    drift[2] = SCALE_DRIFT
+    m2.kf_pose[kf_ids] = sim3_np.to_se3(integrate_drift(links, S[0], drift))
+    first, last = kf_ids[0], kf_ids[-1]
+    m2.loop_edges.append((last, first))
+    m2.dev_kf.ensure(m2)   # the keyframe mirror a running system keeps
+    closer2 = LoopCloser(cfg, m2, cam, KeyFrameDatabase(m2, device=dev))
+    true_last = corridor_pose(SCALE_KFS - 1)
+    c_true = np.linalg.inv(true_last)[:3, 3]
+    e_pg0 = float(np.linalg.norm(np.linalg.inv(m2.kf_pose[last])[:3, 3] - c_true))
+    pg_ms = defaultdict(float)
+    with Capture(pose_graph_cg, "optimize_pose_graph") as cap, \
+            Stopwatch(pg_ms, "P'", pose_graph_cg, "optimize_pose_graph"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        closer2._optimize_essential_graph(
+            last, first, {}, {last: sim3_np.from_se3(true_last)})
+        torch.cuda.synchronize()
+        eg_ms = 1e3 * (time.perf_counter() - t)
+    counts = kernels.launch_counts()
+    e_pg = float(np.linalg.norm(np.linalg.inv(m2.kf_pose[last])[:3, 3] - c_true))
+    its = pose_graph_cg.last_cg_iterations.cpu().tolist()
+    pg_args = cap.args
+    phase_s = time.perf_counter() - t_phase
+
+    check("sweep:" in printed and "newest window" not in printed,
+          f"scale: the sweep did not run: {printed!r}")
+    check(np.isfinite(m.kf_pose[kf_ids]).all(), "scale: poses not finite")
+    check(e_post < SCALE_GAIN * e_pre, f"scale: sweep error {e_post} not < "
+          f"{SCALE_GAIN} x {e_pre}")
+    check(e_post_old < SCALE_GAIN * e_pre_old, f"scale: oldest {SCALE_OLDEST} "
+          f"error {e_post_old} not < {SCALE_GAIN} x {e_pre_old}")
+    check(np.isfinite(m2.kf_pose[kf_ids]).all(), "scale: graph poses not finite")
+    check(e_pg < PG_GAIN_LOOP * e_pg0, f"scale: essential graph far end {e_pg} "
+          f"not < {PG_GAIN_LOOP} x {e_pg0}")
+    fields = dict(
+        keyframes=SCALE_KFS, points=int(len(m.valid_map_points())),
+        windows=len(windows), window_K=[w["K"] for w in windows],
+        window_M=[w["M"] for w in windows], obs_cap=SCALE_SPAN,
+        rms_error=dict(before=e_pre, after=e_post, oldest_before=e_pre_old,
+                       oldest_after=e_post_old),
+        essential_graph=dict(K=int(pg_args[0][0].shape[0]),
+                             E=int(pg_args[0][3].shape[0]),
+                             far_end_before=e_pg0, far_end_after=e_pg,
+                             cg_iterations=its),
+        ms=dict(map_build_host=build_ms, sweep=sweep_ms, gather=times["gather"],
+                solve=times["solve"], write_back=times["write_back"],
+                propagate=times["propagate"], essential_graph=eg_ms,
+                pose_graph_cg_wall=1e3 * pg_ms["P'"]),
+        phase_s=phase_s, card=card_line())
+    return counts, dict(pg=pg_args, window=windows[0], windows=windows,
+                        cam=cam, closer_solve=closer._solve_chunked), fields
+
+
+def scale_rows(dev, record, args, fields):
+    """Kernel P' against its plain version on the reference's two
+    2000-vertex graphs, on a 385-keyframe ring against kernel P forced
+    dense, and on the arguments the scale path gave it (the kernels line's
+    row); the sweep's first window against the plain BA schedule; and the
+    sweep's bounds. Adds P''s device ms to ``fields``."""
+    from orbslam2_tpu_torch.kernels import pose_graph, pose_graph_cg
+    from orbslam2_tpu_torch.ops import ba
+    from orbslam2_tpu_torch.ops import geometry as geo
+    from orbslam2_tpu_torch.utils import ba_parity
+    from orbslam2_tpu_torch.utils.synthetic import pose_graph_ring, scale_graph
+
+    # (a) the reference's 2000-vertex graphs, with the reference tests'
+    # assertions; the circle also against the plain CG on the card. The
+    # corridor's CG meets its 600-iteration cap and its result is not
+    # determined to float32 rounding (PERF.md section 7), so there the
+    # kernel is held to the reference's assertions alone (the CPU tests
+    # hold the plain version to them)
+    for kind in ("circle", "corridor"):
+        a, S_true = scale_graph(kind)
+        a = [torch.from_numpy(x).to(dev) for x in a]
+        S_true = torch.from_numpy(S_true).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        rk = pose_graph_cg.optimize_pose_graph(*a)
+        ev[1].record()
+        ev[1].synchronize()
+        ms_k = ev[0].elapsed_time(ev[1])
+        its = pose_graph_cg.last_cg_iterations.cpu().tolist()
+        e0 = (centre(a[0][-1]) - centre(S_true[-1])).norm().item()
+        err = (centre(rk.poses[-1]) - centre(S_true[-1])).norm().item()
+        log_s = geo.sim3_s(rk.poses).log().abs().max().item()
+        check(bool(torch.isfinite(rk.poses).all()), f"P' {kind}: not finite")
+        check(err < PG_GAIN * e0, f"P' {kind}: far end {err} not < {PG_GAIN} x {e0}")
+        vs_plain = ""
+        if kind == "circle":
+            t = time.perf_counter()
+            rp = pose_graph_cg.optimize_pose_graph_plain(*a)
+            torch.cuda.synchronize()
+            ms_p = 1e3 * (time.perf_counter() - t)
+            diff = (rk.poses - rp.poses).abs().max().item()
+            check(diff < PG_TOL, f"P' circle: pose vectors differ by {diff}")
+            vs_plain = (f", pose vectors vs plain max diff {diff:.3e}, cost "
+                        f"{rk.cost.item():.3e} vs {rp.cost.item():.3e}, plain "
+                        f"{ms_p:.1f} ms")
+        else:
+            check(log_s < 0.05, f"P' corridor: |log s| {log_s} >= 0.05")
+        print(f"kernel pose_graph_cg on the reference's 2000-vertex {kind} "
+              f"(E={a[3].shape[0]}): far end {e0:.4f} m -> {err:.3e} m, max "
+              f"|log s| {log_s:.2e}{vs_plain}; {ms_k:.1f} ms a call between "
+              f"CUDA events; CG iterations {its}")
+
+    # (b) P' against P forced dense at the dense limit and one past it
+    for K in (384, 385):
+        a, _ = pose_graph_ring(K)
+        a = [x.to(dev) for x in a]
+        rd = pose_graph.optimize_pose_graph(*a, fix_scale=True, solver="dense")
+        rc = pose_graph.optimize_pose_graph(*a, fix_scale=True, solver="cg")
+        diff = (rd.poses - rc.poses).abs().max().item()
+        check(diff < PG_TOL, f"P' at K={K}: pose vectors differ from P's by {diff}")
+        ms = {"dense": [], "cg": []}
+        for solver in ("dense", "cg", "cg", "dense"):
+            ms[solver].append(cuda_ms(
+                lambda: pose_graph.optimize_pose_graph(*a, fix_scale=True,
+                                                       solver=solver),
+                reps=3, warmup=1))
+        print(f"pose graph at K={K} (ring, E={a[3].shape[0]}): P' vs P dense "
+              f"max diff {diff:.3e}; ms a call, alternating P, P', P', P: "
+              f"P {ms['dense']}, P' {ms['cg']}")
+
+    # the main path's P' call: the row and its memory (its launches per LM
+    # iteration are checked in phase 3, pose_graph_cg_launches).
+    # Its CG meets the 600-iteration cap from the third LM iteration on, and
+    # 20 iterations of it are not determined to float32 rounding, so the
+    # parity check is the first two LM iterations (each a converged CG
+    # solve) against the plain version's, pose vectors within PG_TOL
+    a, kw = args["pg"]
+    a, kw = a[:7], {**dict(zip(("iters", "fix_scale", "order"), a[7:])), **kw}
+    K, E, E_valid = a[0].shape[0], a[3].shape[0], int(a[6].sum())
+    iters = kw["iters"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rk = pose_graph_cg.optimize_pose_graph(*a, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    its = pose_graph_cg.last_cg_iterations.cpu().tolist()
+    dense = 4 * (7 * K) ** 2
+    check(peak < dense // 8, f"P' allocated {peak} bytes, dense system {dense}")
+    t = time.perf_counter()
+    rp = pose_graph_cg.optimize_pose_graph_plain(*a, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err_c, err_r = pose_diff(rk.poses, rp.poses, a[2])
+    kw2 = dict(kw, iters=2)
+    rk2 = pose_graph_cg.optimize_pose_graph(*a, **kw2)
+    its2 = pose_graph_cg.last_cg_iterations.cpu().tolist()
+    rp2 = pose_graph_cg.optimize_pose_graph_plain(*a, **kw2)
+    diff = (rk2.poses - rp2.poses).abs().max().item()
+    check(diff < PG_TOL, f"P' on the loop closer's graph, 2 iterations: pose "
+          f"vectors differ by {diff}")
+    n = 7 * K
+    g = torch.Generator(device=dev).manual_seed(2)
+    B = torch.randn(n, n, device=dev, generator=g)
+    A_spd = B @ B.T / n + torch.eye(n, device=dev)
+    rhs = torch.randn(n, 1, device=dev, generator=g)
+    row = record(pose_graph_cg, diff, lambda: pose_graph_cg.optimize_pose_graph(*a, **kw),
+                 plain_ms,
+                 f"the loop closer's graph, K={K} slots ({int(a[2].sum())} live), "
+                 f"E={E}, {iters} iterations, CG iterations {its} ({sum(its)} "
+                 f"in all); 2 iterations (CG {its2}) against the plain CG: "
+                 f"pose vectors max diff {diff:.2e}; {iters} iterations: centres "
+                 f"max diff {err_c:.2e} m, rotations {err_r:.2e} rad, cost "
+                 f"{rk.cost.item():.3e} vs {rp.cost.item():.3e}; peak "
+                 f"allocation {peak / 2**20:.1f} MiB against the dense system's "
+                 f"{dense / 2**20:.1f} MiB; library: torch.linalg.cholesky + "
+                 f"torch.cholesky_solve of one n={n} system (one LM iteration's "
+                 f"dense solve)",
+                 library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                     rhs, torch.linalg.cholesky(A_spd)), reps=5),
+                 function=None, reps=1,
+                 # the graph read once, the poses written; operations of the
+                 # run's CG iterations (pose_graph_cg_ops)
+                 n_bytes=nbytes(*a, kw["order"]) + 4 * (8 * K + 1),
+                 n_ops=pose_graph_cg_ops(K, E_valid, sum(its), iters))
+    fields["essential_graph"]["device_ms"] = row["device_ms"]
+
+    # the sweep's first window: the kernels' chunked solve against the
+    # plain BA schedule run the same way, held to ba_parity.LIMITS
+    win = args["window"]
+    closer_prob, w_iters, _, chunk = win["args"][0]
+    cam = args["cam"]
+    res_p = None
+    prob = closer_prob
+    done = 0
+    while done < w_iters:
+        n_it = min(chunk, w_iters - done)
+        res_p = ba.optimize_ba_plain(cam, prob, iters=n_it,
+                                     outlier_rounds=1 if done + n_it >= w_iters else 0)
+        prob = prob._replace(poses=res_p.poses, points=res_p.points)
+        done += n_it
+    got = ba_parity.compare(cam, closer_prob, win["result"], res_p)
+    # the kernels against themselves: a second run of the chunked solve
+    again = args["closer_solve"](closer_prob, w_iters, None, chunk)
+    spread = ba_parity.compare(cam, closer_prob, again, win["result"])
+    print(f"scale: the sweep's first window (K={win['K']}, M={win['M']}, O="
+          f"{SCALE_SPAN}, {w_iters} iterations in chunks of {chunk}) against the "
+          f"plain schedule: {got}; the kernels' second run against their "
+          f"first: {spread}")
+    # the window's cameras lie up to 205 m from the origin, where a float32
+    # ulp of a position is 1.5e-5 m, and its measurements are exact (the
+    # cost sits near zero), so the kernels' own second run differs from
+    # their first by up to 7.6e-5 in the poses, 2.3e-2 px and 1.6e-2 in
+    # cost (measured), at or past the BA limits: each reading is held to
+    # the larger of its limit and 3 x the kernels' own spread in this run
+    limits = {k: max(lim, 3 * spread[k]) for k, lim in ba_parity.LIMITS.items()}
+    # the cost itself sits at float32 rounding (0.19 px^2 over 242400
+    # observations, measured on the CPU): a difference below (1e-3 px)^2
+    # an observation passes whatever its relative size
+    d_cost = abs(win["result"].cost.item() - res_p.cost.item())
+    n_obs = int(closer_prob.obs_valid.sum())
+    over = {k: got[k] for k, lim in limits.items() if got[k] > lim
+            and not (k == "cost" and d_cost <= 1e-6 * n_obs)}
+    print(f"scale: first window cost {win['result'].cost.item():.6f} vs plain "
+          f"{res_p.cost.item():.6f} over {n_obs} observations")
+    check(not over, f"scale: first window {got} over {limits}")
+    # the sweep's row (K9''): a window's device time (the first window's
+    # chunked solve, profiled), and the windows' E-F'-G-H bounds over the
+    # LM iterations of the chunked schedule (each chunk's iterations, the
+    # last chunk's outlier round half as many again)
+    window_dev = device_ms(lambda: args["closer_solve"](closer_prob, w_iters, None,
+                                                        chunk), None, reps=1)
+    lm_its, done = 0, 0
+    while done < w_iters:
+        n_it = min(chunk, w_iters - done)
+        done += n_it
+        lm_its += n_it + (max(n_it // 2, 1) if done >= w_iters else 0)
+    bounds = [ba_iteration_bound(cam, w["prob"]) for w in args["windows"]]
+    fields["window_bound_ms_per_lm_iteration"] = [b[0] for b in bounds]
+    fields["windows_bound_ms"] = lm_its * sum(b[0] for b in bounds)
+    fields["first_window_device_ms"] = window_dev
+    fields["first_window_parity"] = got
+    fields["first_window_kernel_spread"] = spread
+    print(f"sweep (K9''): {fields['ms']['sweep']:.1f} ms for {len(bounds)} windows, "
+          f"the first window's solve {window_dev:.3f} ms of device "
+          f"({lm_its} LM iterations), the windows' E-H bounds "
+          f"{fields['windows_bound_ms']:.4f} ms in all")
 
 
 def main():
@@ -1979,7 +2459,7 @@ def main():
     rows = []
 
     def record(mod, err, fn, plain_ms, note, n_bytes, n_ops, library_ms=None,
-               per_call=1, bound_override=None, function=""):
+               per_call=1, bound_override=None, function="", reps=20):
         """One kernel's row: ms is one call of ``fn`` between CUDA events
         (host work included; ``per_call`` launches, e.g. every pyramid
         level), device_ms the kernel's own device time per call, plain_ms
@@ -1987,12 +2467,13 @@ def main():
         PyTorch call of the same function where there is one. The bound is
         bound(n_bytes, n_ops), or ``bound_override`` (ms, by) where the work
         runs at another peak. ``function=None`` takes every device event
-        of the call (a kernel that runs another's launches)."""
-        ms = cuda_ms(fn)
+        of the call (a kernel that runs another's launches); ``reps`` calls
+        are timed each way (fewer for a call of seconds). Returns the row."""
+        ms = cuda_ms(fn, reps=reps, warmup=min(3, reps))
         dev_ms = device_ms(fn, mod.FUNCTION if function == "" else function,
-                           per_call=per_call)
+                           reps=reps, per_call=per_call)
         bound_ms, bound_by = bound_override or bound(n_bytes, n_ops)
-        seen, launched = profile_gaps.pop(mod.FUNCTION, (20 * per_call,) * 2)
+        seen, launched = profile_gaps.pop(mod.FUNCTION, (reps * per_call,) * 2)
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
                          ms=ms, device_ms=dev_ms,
@@ -2005,6 +2486,7 @@ def main():
         print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
               f"{dev_ms:.4f} ms{part}) vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound_ms:.6f} ms ({bound_by})")
+        return rows[-1]
 
     # A: FAST score + NMS on the 640x480 level 0
     border = orb.PATCH_R
@@ -2143,6 +2625,7 @@ def main():
     mapping_rows(dev, record, cam, extractor, frames, poses)
     ba_rows(dev, record)
     blocked_rows(dev, record)
+    pose_graph_cg_launches(dev)
     front_rows(dev, record, img0, frames[0][1], feats, cam)
     print(f"device times: {len(rows)} kernels; profiles that missed launches "
           f"(kernel, events, launches): {profile_retries or 'none'}")
@@ -2199,20 +2682,29 @@ def main():
     # ---- phase 7: loop closing on the circuit ------------------------------
     path_counts["loop"], loop_args, loop_fields = loop_path(dev)
     print("loop " + json.dumps(loop_fields))
+
+    # ---- phase 8: loop closing at map scale ----------------------------------
+    path_counts["scale"], scale_args, scale_fields = scale_path(dev)
     for path, names in PATHS.items():
         for name in names:
             check(path_counts[path][name] > 0,
                   f"kernel {name} never launched on the {path} path")
-    launched = {k for k, v in path_counts["loop"].items() if v > 0}
-    check(launched == set(PATHS["loop"]),
-          f"the loop path launched {sorted(launched ^ set(PATHS['loop']))} "
-          f"against PATHS['loop']")
+    for path in ("loop", "scale"):
+        launched = {k for k, v in path_counts[path].items() if v > 0}
+        check(launched == set(PATHS[path]),
+              f"the {path} path launched {sorted(launched ^ set(PATHS[path]))} "
+              f"against PATHS[{path!r}]")
     n_retries = len(profile_retries)
     port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args)
     reloc_rows(dev, record, y_args, ur_args, z_args)
     loop_rows(dev, record, loop_args)
-    print(f"device times of U, V, W, X, Y, Z, K, M, P: profiles that missed launches "
-          f"(kernel, events, launches): {profile_retries[n_retries:] or 'none'}")
+    t_rows = time.perf_counter()
+    scale_rows(dev, record, scale_args, scale_fields)
+    scale_fields["rows_s"] = time.perf_counter() - t_rows
+    print("scale " + json.dumps(scale_fields))
+    print(f"device times of U, V, W, X, Y, Z, K, M, P, P': profiles that missed "
+          f"launches (kernel, events, launches): "
+          f"{profile_retries[n_retries:] or 'none'}")
     total = {mod.NAME: sum(c[mod.NAME] for c in path_counts.values())
              for mod in kernels.KERNELS}
     for name, n in total.items():

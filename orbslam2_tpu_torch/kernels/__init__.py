@@ -32,6 +32,7 @@ time it launches the CUDA kernel:
   sim3_opt        M  Sim3 LM refinement, 5 + 10 its   (ops/sim3_opt.py, loop_closing.py)
   sim3_search     M  SearchBySim3, both directions    (ops/sim3_opt.py, loop_closing.py)
   pose_graph      P  essential graph, dense LM        (ops/pose_graph.py, loop_closing.py)
+  pose_graph_cg   P' essential graph, CG, K > 384     (ops/pose_graph.py, loop_closing.py)
   ba_solve_blocked F' blocked multi-block Cholesky     (ops/ba.py past 6K = 384, kernel P)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
@@ -41,16 +42,17 @@ launches the kernel (built by ``build.library()`` at first use) or raises.
 from . import (ba_accept, ba_linearize, ba_solve, ba_solve_blocked,
                ba_update_cost, bow_words, cascade_pack, claim_resolve,
                describe, fast_score, fuse_match, hamming, match_rot,
-               orb_select, pnp_ransac, point_attrs, pose_graph, pose_lm,
-               project_gate, pyramid, rgbd_depth, sim3_opt, sim3_ransac,
-               sim3_search, stereo_match, stereo_sad, triangulate, two_view)
+               orb_select, pnp_ransac, point_attrs, pose_graph, pose_graph_cg,
+               pose_lm, project_gate, pyramid, rgbd_depth, sim3_opt,
+               sim3_ransac, sim3_search, stereo_match, stereo_sad, triangulate,
+               two_view)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
            point_attrs, project_gate, claim_resolve, cascade_pack,
            triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
            two_view, bow_words, pnp_ransac, sim3_ransac, sim3_opt,
-           sim3_search, pose_graph, ba_solve_blocked)
+           sim3_search, pose_graph, ba_solve_blocked, pose_graph_cg)
 
 
 def reset_launches():

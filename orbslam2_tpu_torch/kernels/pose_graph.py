@@ -2,14 +2,14 @@
 
 Replaces ``orbslam2_tpu/ops/pose_graph.py``: ``optimize_pose_graph`` /
 ``pose_graph_impl`` for K <= 384 vertices (the closed-form start and 20
-dense LM iterations). CUDA source: ``csrc/pose_graph.cu`` (a one-block
+dense LM iterations); past 384, as the reference, ``optimize_pose_graph``
+hands the graph to kernel P' (``kernels/pose_graph_cg.py``, the
+matrix-free CG solver). CUDA source: ``csrc/pose_graph.cu`` (a one-block
 launch for the start; per iteration the per-edge linearization in dual
 numbers, the system's frozen rows and damping, kernel F' blocked
 factorization and solve (``csrc/cholesky.cu``), and a one-block update with
 the cost test; the state stays on the device). The plain version is
 ``ops/pose_graph.py`` (``torch.func`` Jacobians, ``torch.linalg.solve``).
-Past K = 384 the reference switches to its matrix-free CG solver, which
-comes with ROADMAP slice 8b: both raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, pose_graph_cg
 from ..ops import pose_graph
 
 NAME = "pose_graph"
@@ -38,26 +38,34 @@ def workspace_floats(K: int, E: int) -> int:
 def optimize_pose_graph_plain(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
                               edge_valid, iters: int = 20,
                               fix_scale: bool = False,
-                              order: Optional[torch.Tensor] = None
+                              order: Optional[torch.Tensor] = None,
+                              solver: str = "auto"
                               ) -> pose_graph.PoseGraphResult:
     return pose_graph.optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j,
                                           edge_Sij, edge_valid, iters,
-                                          fix_scale, order)
+                                          fix_scale, order, solver)
 
 
 def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
                         edge_valid, iters: int = 20, fix_scale: bool = False,
-                        order: Optional[torch.Tensor] = None
-                        ) -> pose_graph.PoseGraphResult:
-    """Kernel P on CUDA tensors, the plain version on CPU tensors."""
+                        order: Optional[torch.Tensor] = None,
+                        solver: str = "auto") -> pose_graph.PoseGraphResult:
+    """The plain version on CPU tensors; on CUDA tensors kernel P, or kernel
+    P' where the solver is "cg" or, with "auto", K > DENSE_MAX_K (K counts
+    every slot, dead ones included, as in the reference)."""
     global launches
     if S_init.device.type == "cpu":
         return optimize_pose_graph_plain(S_init, fixed, valid, edge_i, edge_j,
                                          edge_Sij, edge_valid, iters, fix_scale,
-                                         order)
+                                         order, solver)
     dev = S_init.device
     K, E = S_init.shape[0], edge_i.shape[0]
-    pose_graph.check_dense(K)
+    if solver not in ("auto", "dense", "cg"):
+        raise ValueError(f"solver must be auto, dense or cg, got {solver!r}")
+    if solver == "cg" or (solver == "auto" and K > pose_graph.DENSE_MAX_K):
+        return pose_graph_cg.optimize_pose_graph(S_init, fixed, valid, edge_i,
+                                                 edge_j, edge_Sij, edge_valid,
+                                                 iters, fix_scale, order)
     if order is None:
         order = torch.arange(K, dtype=torch.int32, device=dev)
     build.expect(NAME, dev, (

@@ -17,13 +17,15 @@ the CPU):
                     kernel C with a 10 px radius, no octave window, TH_LOW
   CorrectLoop       host numpy Sim3 algebra (``ops/sim3_np.py``)
   SearchAndFuse     kernel T at radius 4, one launch over the group
-  essential graph   kernel P (``kernels/pose_graph.py``) with F'
+  essential graph   kernel P (``kernels/pose_graph.py``) with F', or past
+                    384 keyframe slots kernel P' (``kernels/pose_graph_cg.py``)
   global BA         kernels E, F or F' (6K > 384), G, H (``ops/ba.py``),
-                    sized to the live map
+                    sized to the live map; past 256 live keyframes the
+                    reference's overlapping-window sweep (windows of 256,
+                    overlap 64, at most 32768 points a window)
 
-Not in this slice: the overlapping-window GBA sweep for maps of more than
-256 keyframes (slice 8b), the background GBA task (slice 9) and the mesh
-solves (slice 10); each raises NotImplementedError naming its slice.
+Not in this slice: the background GBA task (slice 9) and the mesh solves
+(slice 10); each raises NotImplementedError naming its slice.
 """
 
 from __future__ import annotations
@@ -45,8 +47,6 @@ from .map.keyframe_database import KeyFrameDatabase
 from .map.state import MapState
 from .models.camera import Camera
 from .ops import ba, matching, sim3_np
-
-GBA_MAX_KFS, GBA_MAX_POINTS = 256, 32768  # the reference's largest bucket
 
 
 class LoopCloser:
@@ -499,42 +499,104 @@ class LoopCloser:
     # ------------------------------------------------------------------
     # Global BA
     # ------------------------------------------------------------------
+    # the reference's single-solve size buckets (K keyframes, M points)
+    _GBA_BUCKETS = ((32, 4096), (64, 8192), (128, 16384), (256, 32768))
+
     def global_bundle_adjustment(self, iters: Optional[int] = None,
-                                 obs_cap: int = 8, use_mesh: bool = False):
-        """Full-map BA: gathered from the live map (every live keyframe,
-        the first in creation order fixed; every point they observe), solved
-        and written back with the spanning-tree propagation to keyframes
-        outside the solve."""
+                                 max_kfs: Optional[int] = None,
+                                 max_points: Optional[int] = None,
+                                 obs_cap: int = 8, use_mesh: bool = False,
+                                 abort_check=None, chunk: int = 5,
+                                 sweep_window: Optional[int] = None,
+                                 sweep_points: Optional[int] = None,
+                                 sweep_overlap: int = 64):
+        """Full-map BA with snapshot semantics: gathered under the map lock,
+        solved without it (in ``chunk``-iteration pieces when an
+        ``abort_check`` is given, which is honoured between pieces), written
+        back under the lock with the spanning-tree propagation to keyframes
+        and points outside the solve. Past the largest single-solve bucket
+        (``sweep_window`` keyframes, 256 by default) the whole map is
+        optimized by the overlapping-window sweep (``_gba_sweep``);
+        ``sweep_points`` and ``sweep_overlap`` set its other sizes."""
         m = self.map
         if use_mesh:
             raise NotImplementedError(
                 "the landmark-sharded global BA comes with ROADMAP slice 10")
         iters = iters or self.cfg.runtime.global_ba_iters
-        n_live_kf = len(m.valid_keyframes())
-        if n_live_kf > GBA_MAX_KFS:
-            raise NotImplementedError(
-                f"global BA over {n_live_kf} > {GBA_MAX_KFS} keyframes: the "
-                "overlapping-window sweep comes with ROADMAP slice 8b")
-        with m.lock:
-            snap = self._gba_gather(obs_cap)
+        if max_kfs is None:
+            n_live_kf = len(m.valid_keyframes())
+            win = sweep_window or self._GBA_BUCKETS[-1][0]
+            if n_live_kf > win:
+                return self._gba_sweep(
+                    iters, obs_cap, abort_check, chunk, window=win,
+                    max_points=sweep_points or self._GBA_BUCKETS[-1][1],
+                    overlap=sweep_overlap)
+        if not self._lock_abortable(abort_check):
+            return
+        try:
+            snap = self._gba_gather(max_kfs, max_points, obs_cap)
+        finally:
+            m.lock.release()
         if snap is None:
             return
         prob, kfs, mp_ids, opt_mask, n_ids = snap
-        res = self._gba_solve(prob, iters)
-        with m.lock:
+        if abort_check is None:
+            res = self._gba_solve(prob, iters)
+        else:
+            res = self._solve_chunked(prob, iters, abort_check, chunk)
+            if res is None:
+                return  # superseded: the result is discarded
+        if not self._lock_abortable(abort_check):
+            return
+        try:
             self._gba_write_back(kfs, opt_mask, res.poses.cpu().numpy(),
                                  mp_ids, res.points.cpu().numpy()[:n_ids])
             m.version += 1
+        finally:
+            m.lock.release()
 
-    def _gba_gather(self, obs_cap: int):
-        """The GBA problem of the live map: K = the live keyframes in
-        creation order (the first held fixed, the gauge), M = the live points
-        they observe (at most GBA_MAX_POINTS), O = obs_cap slots. The
-        reference pads K and M to its size buckets, which changes no
-        solution (``ops.ba.pad_problem``); the port solves the live size."""
+    def _lock_abortable(self, abort_check) -> bool:
+        """Acquire the map lock, polling the abort flag while blocked (a
+        superseding loop closure holds the lock while it waits for the
+        running GBA); False if the flag won."""
+        if abort_check is None:
+            self.map.lock.acquire()
+            return True
+        while not self.map.lock.acquire(timeout=0.05):
+            if abort_check():
+                return False
+        return True
+
+    def _gba_gather(self, max_kfs, max_points, obs_cap: int, kfs=None,
+                    fixed_prefix: int = 1):
+        """The GBA problem: the keyframes ``kfs`` (a sweep window, in
+        creation order) or, without them, the live keyframes in creation
+        order, the newest ``max_kfs`` kept when there are more (both sizes
+        from the reference's buckets when not given, with its print past
+        the largest); the first ``fixed_prefix`` held fixed; the live points
+        they observe, at most ``max_points``; ``obs_cap`` slots. The
+        reference pads K and M to its buckets, which changes no solution
+        (``ops.ba.pad_problem``); the port gathers the live size."""
         m = self.map
-        kfs = sorted((int(k) for k in m.valid_keyframes()),
-                     key=lambda k: int(m.kf_seq[k]))
+        if kfs is None:
+            n_live_kf = len(m.valid_keyframes())
+            n_live_mp = len(m.valid_map_points())
+            if max_kfs is None or max_points is None:
+                for bk, bp in self._GBA_BUCKETS:
+                    if n_live_kf <= bk and n_live_mp <= bp:
+                        max_kfs, max_points = bk, bp
+                        break
+                else:
+                    max_kfs, max_points = self._GBA_BUCKETS[-1]
+                    print(f"[global BA] map ({n_live_kf} KFs, {n_live_mp} pts) "
+                          f"exceeds largest bucket {self._GBA_BUCKETS[-1]}; "
+                          f"optimizing the newest window (older poses propagate "
+                          f"through the spanning tree at write-back)")
+            kfs = sorted((int(k) for k in m.valid_keyframes()),
+                         key=lambda k: int(m.kf_seq[k]))
+            kfs = kfs[-max_kfs:]
+        else:
+            kfs = [int(k) for k in kfs if m.kf_valid[k]]
         if len(kfs) < 2:
             return None
         in_window = np.zeros(m.n_kf, bool)
@@ -543,17 +605,16 @@ class LoopCloser:
         obs_in = in_window[np.maximum(m.mp_obs_kf[mp_all], 0)] & (
             m.mp_obs_kf[mp_all] >= 0)
         mp_ids = mp_all[obs_in.any(1)]
-        if len(mp_ids) > GBA_MAX_POINTS:
-            print(f"[global BA] point budget: {len(mp_ids) - GBA_MAX_POINTS} of "
-                  f"{len(mp_ids)} points beyond cap {GBA_MAX_POINTS} move with "
-                  f"their reference keyframe instead of being optimized")
-            mp_ids = mp_ids[:GBA_MAX_POINTS]
+        if len(mp_ids) > max_points:
+            print(f"[global BA] point budget: {len(mp_ids) - max_points} of "
+                  f"{len(mp_ids)} window points beyond cap {max_points} move "
+                  f"with their reference KF instead of being optimized")
+            mp_ids = mp_ids[:max_points]
         n_ids = len(mp_ids)
         Kw, Mw, Ow = len(kfs), n_ids, obs_cap
-        poses = np.tile(np.eye(4, dtype=np.float32), (Kw, 1, 1))
-        poses[: len(kfs)] = m.kf_pose[kfs]
+        poses = m.kf_pose[kfs].astype(np.float32)
         opt_mask = np.zeros(Kw, bool)
-        opt_mask[1: len(kfs)] = True
+        opt_mask[fixed_prefix:] = True
         w_of_kf = np.full(max(m.n_kf, 1), -1, np.int32)
         w_of_kf[np.asarray(kfs)] = np.arange(len(kfs), dtype=np.int32)
         raw_kf = m.mp_obs_kf[mp_ids]
@@ -567,24 +628,109 @@ class LoopCloser:
         kf_c = np.maximum(raw_kf[rows, order], 0)
         ft_c = np.maximum(raw_ft[rows, order], 0)
         sf = self.cfg.extractor.scale_factor
-        points = np.zeros((Mw, 3), np.float32)
-        points[:n_ids] = m.mp_pos[mp_ids]
-        point_valid = np.zeros(Mw, bool)
-        point_valid[:n_ids] = True
-        obs_kf_t = np.full((Mw, Ow), -1, np.int32)
-        obs_uvr = np.full((Mw, Ow, 3), -1.0, np.float32)
-        obs_s2 = np.ones((Mw, Ow), np.float32)
-        obs_val = np.zeros((Mw, Ow), bool)
-        obs_kf_t[:n_ids] = np.where(has_c, wi_c, -1)
+        points = m.mp_pos[mp_ids].astype(np.float32)
+        point_valid = np.ones(Mw, bool)
+        obs_kf_t = np.where(has_c, wi_c, -1).astype(np.int32)
         xy = m.kf_xy[kf_c, ft_c]
         ur = m.kf_ur[kf_c, ft_c]
-        obs_uvr[:n_ids] = np.concatenate([xy, ur[..., None]], axis=2)
-        obs_s2[:n_ids] = sf ** (2.0 * m.kf_octave[kf_c, ft_c])
-        obs_val[:n_ids] = has_c
+        obs_uvr = np.concatenate([xy, ur[..., None]], axis=2).astype(np.float32)
+        obs_s2 = (sf ** (2.0 * m.kf_octave[kf_c, ft_c])).astype(np.float32)
         prob = ba.BAProblem(*(self._t(a) for a in (
             poses, opt_mask, points, point_valid, obs_kf_t, obs_uvr, obs_s2,
-            obs_val)))
+            has_c)))
         return prob, kfs, mp_ids, opt_mask, n_ids
+
+    def _solve_chunked(self, prob, iters: int, abort_check, chunk: int):
+        """LM in ``chunk``-iteration calls of the BA schedule (each restarts
+        lambda; the outlier round only in the last), the abort flag read
+        between calls. None when superseded."""
+        res = None
+        done = 0
+        while done < iters:
+            n = min(chunk, iters - done)
+            last = done + n >= iters
+            res = ba.optimize_ba(self.cam, prob, iters=n,
+                                 outlier_rounds=1 if last else 0)
+            prob = prob._replace(poses=res.poses, points=res.points)
+            done += n
+            if abort_check is not None and abort_check() and not last:
+                return None
+        return res
+
+    def _gba_sweep(self, iters: int, obs_cap: int, abort_check, chunk: int,
+                   window: int, max_points: int, overlap: int = 64):
+        """Whole-map GBA past the largest single-solve bucket: overlapping
+        windows of ``window`` keyframes in creation order, swept oldest to
+        newest, each step ``window - overlap``. The first window fixes its
+        first keyframe, each later one the ``overlap`` keyframes the
+        previous window optimized, so every keyframe pose is optimized and
+        the corrections chain forward. Points are written back per window
+        (the last window wins where windows overlap) and the correction
+        epoch bumped each time; keyframes outside every window and points
+        never selected follow through ``_propagate_unoptimized`` at the
+        end, each keyframe against the pose it had when it first appeared
+        in a window."""
+        m = self.map
+        if not self._lock_abortable(abort_check):
+            return
+        try:
+            all_kfs = sorted((int(k) for k in m.valid_keyframes()),
+                             key=lambda k: int(m.kf_seq[k]))
+        finally:
+            m.lock.release()
+        step = max(window - overlap, 1)
+        n_win = 1 + max(0, -(-(len(all_kfs) - window) // step))
+        print(f"[global BA] sweep: {len(all_kfs)} KFs in {n_win} windows "
+              f"of {window} (overlap {overlap})")
+        eff_bef: Dict[int, np.ndarray] = {}
+        eff_new: Dict[int, np.ndarray] = {}
+        mp_opt = np.zeros(m.mp_valid.shape[0], bool)
+        start = 0
+        while True:
+            wk = all_kfs[start: start + window]
+            fixed_prefix = 1 if start == 0 else min(overlap, len(wk) - 1)
+            if not self._lock_abortable(abort_check):
+                return
+            try:
+                snap = self._gba_gather(window, max_points, obs_cap, kfs=wk,
+                                        fixed_prefix=fixed_prefix)
+            finally:
+                m.lock.release()
+            if snap is not None:
+                prob, kfs_w, mp_ids, opt_mask, n_ids = snap
+                res = self._solve_chunked(prob, iters, abort_check, chunk)
+                if res is None:
+                    return  # superseded mid-sweep: completed windows stand
+                new_poses = res.poses.cpu().numpy()
+                new_points = res.points.cpu().numpy()[:n_ids]
+                if not self._lock_abortable(abort_check):
+                    return
+                try:
+                    m.correction_epoch += 1
+                    for w, k in enumerate(kfs_w):
+                        if not m.kf_valid[k]:
+                            continue
+                        eff_bef.setdefault(k, m.kf_pose[k].copy())
+                        T = new_poses[w] if opt_mask[w] else m.kf_pose[k].copy()
+                        eff_new[k] = T
+                        m.kf_pose[k] = T
+                    sel = m.mp_valid[mp_ids]
+                    live = mp_ids[sel]
+                    m.mp_pos[live] = new_points[sel]
+                    mp_opt[live] = True
+                finally:
+                    m.lock.release()
+            if start + window >= len(all_kfs):
+                break
+            start += step
+        if not self._lock_abortable(abort_check):
+            return
+        try:
+            m.correction_epoch += 1
+            self._propagate_unoptimized(eff_bef, eff_new, mp_opt)
+            m.version += 1
+        finally:
+            m.lock.release()
 
     def _gba_solve(self, prob, iters: int):
         return ba.optimize_ba(cam=self.cam, prob=prob, iters=iters)

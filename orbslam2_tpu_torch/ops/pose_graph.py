@@ -1,6 +1,7 @@
-"""7-DoF Sim3 pose-graph (essential graph) optimization, dense solver (port
-of ``orbslam2_tpu.ops.pose_graph``, plain PyTorch; kernel P,
-``kernels/pose_graph.py``, runs it on the card).
+"""7-DoF Sim3 pose-graph (essential graph) optimization (port of
+``orbslam2_tpu.ops.pose_graph``, plain PyTorch; kernel P,
+``kernels/pose_graph.py``, runs the dense solver on the card and kernel P',
+``kernels/pose_graph_cg.py``, the conjugate-gradient one).
 
 Every keyframe pose is a Sim3 vertex, connected by relative-Sim3 edges
 (spanning tree, strong covisibility, loop edges) with identity information;
@@ -10,12 +11,20 @@ with the base-relative edge transforms M_ij = S0_j S0_i^-1 folded once;
 the start is the better (by total cost) of zero, the chain re-integration
 of the measured temporal links, and the loop-aware ramp on top of it. Each
 iteration linearizes every edge (forward-mode autodiff of the residual
-log(S_ij exp(d_j) exp(x_j) M_ij exp(-x_i) exp(-d_i)) at d = 0), assembles
-the dense (7K, 7K) normal equations with frozen vertices as identity rows,
-solves them and keeps the step if the total cost falls.
+log(S_ij exp(d_j) exp(x_j) M_ij exp(-x_i) exp(-d_i)) at d = 0) into its
+7x7 blocks, solves for a step and keeps it if the total cost falls. The
+step comes from one of two solvers, chosen by K = S_init.shape[0] (every
+slot, dead ones included) as the reference chooses:
 
-K <= DENSE_MAX_K only: the reference's matrix-free PCG for larger graphs
-comes with ROADMAP slice 8b.
+- K <= DENSE_MAX_K: the dense (7K, 7K) normal equations with frozen
+  vertices as identity rows, one solve;
+- larger K: matrix-free preconditioned conjugate gradients. The
+  preconditioner is the exact inverse of the temporal chain's Hessian
+  (pseudo-edges between consecutive vertices of ``order``): its factor is
+  block-bidiagonal, so applying it is two affine recurrences
+  x_k = M_k x_{k-1} + c_k, backward then forward, each evaluated as a
+  log-depth doubling scan whose matrix products are formed once per LM
+  iteration. CG then resolves the off-chain edges (loop, covisibility).
 """
 
 from __future__ import annotations
@@ -33,13 +42,6 @@ D = 7
 class PoseGraphResult(NamedTuple):
     poses: torch.Tensor  # (K, 8) optimized Sim3 vectors
     cost: torch.Tensor
-
-
-def check_dense(K: int):
-    if K > DENSE_MAX_K:
-        raise NotImplementedError(
-            f"pose graph with K={K} > {DENSE_MAX_K} vertices: the conjugate-"
-            "gradient solver comes with ROADMAP slice 8b")
 
 
 def edge_residual(d_i, d_j, x_i, x_j, M_ij, S_ij):
@@ -76,7 +78,8 @@ def prepare(S_init, fixed, valid, edge_i, edge_j, edge_Sij, edge_valid,
     """The closed-form start: gauge recentring, base-relative edge
     transforms, chain re-integration and the loop-aware ramp, each guarded
     by the total cost. Returns (x_init (K, 7), S0 (K, 8), W_inv (8,),
-    M_e (E, 8), freeze (K,))."""
+    M_e (E, 8), freeze (K,), M_ch (K, 8)), M_ch being the chain's
+    base-relative links S0p_k S0p_{k-1}^-1 in ``order``."""
     K = S_init.shape[0]
     dt, dev = S_init.dtype, S_init.device
     if order is None:
@@ -161,12 +164,13 @@ def prepare(S_init, fixed, valid, edge_i, edge_j, edge_Sij, edge_valid,
                              geo.sim3_inverse(S0)))))
     c_ramp, _ = total_cost(x_ramp)
     x_init = torch.where(c_ramp < c_best, x_ramp, x_best)
-    return x_init, S0, W_inv, M_e, freeze
+    return x_init, S0, W_inv, M_e, freeze, M_ch
 
 
-def normal_equations(x, lam, edge_i, edge_j, M_e, edge_Sij, edge_valid, freeze):
-    """(H (7K, 7K), b (7K,)) of one LM iteration: the per-edge blocks
-    assembled densely, frozen vertices as identity rows, + lam I."""
+def edge_blocks(x, edge_i, edge_j, M_e, edge_Sij, edge_valid, freeze):
+    """The per-edge normal-equation blocks Hii, Hjj, Hij (E, 7, 7) of one
+    LM iteration (zero for invalid edges) and the gradient b (K, 7), zero
+    on frozen rows."""
     K = x.shape[0]
     ei, ej = edge_i.long(), edge_j.long()
     ew = edge_valid.to(x.dtype)
@@ -182,6 +186,16 @@ def normal_equations(x, lam, edge_i, edge_j, M_e, edge_Sij, edge_valid, freeze):
     b.index_add_(0, ei, bi)
     b.index_add_(0, ej, bj)
     b = torch.where(freeze[:, None], torch.zeros_like(b), b)
+    return Hii, Hjj, Hij, b
+
+
+def normal_equations(x, lam, edge_i, edge_j, M_e, edge_Sij, edge_valid, freeze):
+    """(H (7K, 7K), b (7K,)) of one LM iteration: the per-edge blocks
+    assembled densely, frozen vertices as identity rows, + lam I."""
+    K = x.shape[0]
+    ei, ej = edge_i.long(), edge_j.long()
+    Hii, Hjj, Hij, b = edge_blocks(x, edge_i, edge_j, M_e, edge_Sij, edge_valid,
+                                   freeze)
     H = torch.zeros((K, K, D, D), dtype=x.dtype, device=x.device)
     H.index_put_((ei, ei), Hii, accumulate=True)
     H.index_put_((ej, ej), Hjj, accumulate=True)
@@ -211,19 +225,138 @@ def edge_cost(x, edge_i, edge_j, M_e, edge_Sij, edge_valid):
     return ((r * r).sum(1) * edge_valid.to(x.dtype)).sum()
 
 
+def chain_factor(x, M_ch, order, freeze):
+    """The chain preconditioner's factor at corrections x: (Ainv, M_fwd,
+    M_bwd), each (K, 7, 7) in chain order. A pseudo-edge joins chain
+    position k to k - 1 (position 0 to the last, harmless because position
+    0 is anchored), measured by the current relative pose; A and B are its
+    Jacobians. Anchored rows (frozen vertices and position 0) get A = I and
+    B = 0, and a row whose predecessor is anchored gets B = 0. Then
+    M_fwd = -A^-1 B and M_bwd_k = -A_k^-T B_{k+1}^T (zero at the end)."""
+    K = x.shape[0]
+    xp = x[order]
+    xprev = torch.roll(xp, 1, 0)
+    Spe = geo.sim3_compose(geo.sim3_exp(xp),
+                           geo.sim3_compose(M_ch, geo.sim3_exp(-xprev)))
+    _, Ach, Bch = edge_lin(xp, xprev, geo.sim3_inverse(M_ch), Spe)
+    anchor = freeze[order].clone()
+    anchor[0] = True
+    eye = torch.eye(D, dtype=x.dtype, device=x.device).expand(K, D, D)
+    Ach = torch.where(anchor[:, None, None], eye, Ach)
+    cut = anchor | torch.roll(anchor, 1)
+    Bch = torch.where(cut[:, None, None], torch.zeros_like(Bch), Bch)
+    Ainv = torch.linalg.inv(Ach)
+    Bnext = torch.roll(Bch, -1, 0)
+    Bnext[-1] = 0.0
+    return Ainv, -Ainv @ Bch, -Ainv.transpose(1, 2) @ Bnext.transpose(1, 2)
+
+
+def scan_levels(M):
+    """The matrices of a doubling scan of x_k = M_k x_{k-1} + c_k: level d
+    holds, for k >= 2^d, the product M_k M_{k-1} ... M_{k-2^d+1} (rows
+    below 2^d are not used). Formed once per LM iteration; each application
+    of the scan is then vector work only."""
+    K = M.shape[0]
+    levels = [M]
+    s = 1
+    while 2 * s < K:
+        cur = levels[-1]
+        nxt = cur.clone()
+        nxt[2 * s:] = cur[2 * s:] @ cur[s:K - s]
+        levels.append(nxt)
+        s *= 2
+    return levels
+
+
+def affine_scan(levels, c):
+    """x_k = M_k x_{k-1} + c_k with x_{-1} = 0, for every k at once, from
+    ``scan_levels(M)``: at level d each x_k with k >= 2^d gains the
+    level's product times x_{k-2^d}."""
+    for d, A in enumerate(levels):
+        s = 1 << d
+        nxt = c.clone()
+        nxt[s:, :, None].baddbmm_(A[s:], c[:-s, :, None])
+        c = nxt
+    return c
+
+
+def cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order, Ainv,
+             M_fwd, M_bwd):
+    """The reference's PCG for (H + lam I) v = b with frozen rows as
+    identity rows: at most min(K, 600) iterations while the preconditioned
+    residual r.z exceeds 1e-10 of its start. Returns (v, iterations)."""
+    K = b.shape[0]
+    ei, ej = edge_i.long(), edge_j.long()
+    # each edge's block row pair [[Hii, Hij], [Hij^T, Hjj]] (E, 14, 14)
+    H = torch.cat([torch.cat([Hii, Hij], 2),
+                   torch.cat([Hij.transpose(1, 2), Hjj], 2)], 1)
+    inv_ord = torch.argsort(order)
+    fwd, bwd = scan_levels(M_fwd), scan_levels(M_bwd.flip(0))
+    AinvT = Ainv.transpose(1, 2)
+    fz = freeze[:, None]
+
+    def precond(r):
+        rp = r[order]
+        # A^T y = rp: the backward recurrence; then A x = y: the forward one
+        y = affine_scan(bwd, (AinvT @ rp[..., None])[..., 0].flip(0)).flip(0)
+        xs = affine_scan(fwd, (Ainv @ y[..., None])[..., 0])
+        return torch.where(fz, r, xs[inv_ord])
+
+    def matvec(v):
+        ye = (H @ torch.cat([v[ei], v[ej]], 1)[..., None])[..., 0]
+        y = torch.zeros_like(v)
+        y.index_add_(0, ei, ye[:, :D])
+        y.index_add_(0, ej, ye[:, D:])
+        return torch.where(fz, v, y + lam * v)
+
+    v = torch.zeros_like(b)
+    r = b - matvec(v)
+    z = precond(r)
+    p = z
+    rz = rz0 = (r * z).sum()
+    it, cg_max = 0, min(K, 600)
+    while it < cg_max and bool(rz > 1e-10 * rz0):
+        Ap = matvec(p)
+        alpha = rz / (p * Ap).sum().clamp_min(1e-20)
+        v = v + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = (r * z).sum()
+        p = z + rz_new / rz.clamp_min(1e-20) * p
+        rz = rz_new
+        it += 1
+    return v, it
+
+
 def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
                         edge_valid, iters: int = 20, fix_scale: bool = False,
-                        order: Optional[torch.Tensor] = None) -> PoseGraphResult:
+                        order: Optional[torch.Tensor] = None,
+                        solver: str = "auto") -> PoseGraphResult:
+    """``solver``: "auto" (dense for K <= DENSE_MAX_K, else CG), "dense" or
+    "cg". ``order``: the temporal vertex order of the CG chain (creation
+    order, dead slots last); slot order by default."""
     K = S_init.shape[0]
-    check_dense(K)
-    x, S0, W_inv, M_e, freeze = prepare(S_init, fixed, valid, edge_i, edge_j,
-                                        edge_Sij, edge_valid, fix_scale, order)
+    if solver not in ("auto", "dense", "cg"):
+        raise ValueError(f"solver must be auto, dense or cg, got {solver!r}")
+    use_dense = K <= DENSE_MAX_K if solver == "auto" else solver == "dense"
+    if order is None:
+        order = torch.arange(K, device=S_init.device)
+    order = order.long()
+    x, S0, W_inv, M_e, freeze, M_ch = prepare(
+        S_init, fixed, valid, edge_i, edge_j, edge_Sij, edge_valid, fix_scale,
+        order)
     edges = (edge_i, edge_j, M_e, edge_Sij, edge_valid)
     lam = torch.tensor(1e-8, dtype=S_init.dtype, device=S_init.device)
     cost = edge_cost(x, *edges)
     for _ in range(iters):
-        H, b = normal_equations(x, lam, *edges, freeze)
-        dx = -torch.linalg.solve(H, b).reshape(K, D)
+        if use_dense:
+            H, b = normal_equations(x, lam, *edges, freeze)
+            dx = -torch.linalg.solve(H, b).reshape(K, D)
+        else:
+            Hii, Hjj, Hij, b = edge_blocks(x, *edges, freeze)
+            v, _ = cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order,
+                            *chain_factor(x, M_ch, order, freeze))
+            dx = -v
         x_new = apply_step(x, dx, freeze, fix_scale)
         cost_new = edge_cost(x_new, *edges)
         accept = cost_new < cost

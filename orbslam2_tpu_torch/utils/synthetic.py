@@ -298,3 +298,150 @@ def pose_graph_ring(K: int, seed: int = 0, fix_scale: bool = True):
     return (torch.stack(S), fixed, torch.ones(K, dtype=torch.bool),
             ei_t.to(torch.int32), ej_t.to(torch.int32), Sij,
             torch.ones(len(ei), dtype=torch.bool)), S_true
+
+
+def _yaw_sim3(yaw, C):
+    """(K, 8) Sim3 camera poses (scale 1) of cameras at centres C (K, 3)
+    turned by ``yaw`` (K,) about the y axis."""
+    from ..ops import sim3_np
+
+    zero, one = np.zeros_like(yaw), np.ones_like(yaw)
+    Rwc = np.stack([np.stack([np.cos(yaw), zero, np.sin(yaw)], -1),
+                    np.stack([zero, one, zero], -1),
+                    np.stack([-np.sin(yaw), zero, np.cos(yaw)], -1)], 1)
+    Rcw = np.swapaxes(Rwc, 1, 2)
+    return sim3_np.make(one, Rcw, -np.einsum("kij,kj->ki", Rcw, C)).astype(np.float32)
+
+
+def corridor_pose(i: int) -> np.ndarray:
+    """The 4x4 Tcw of keyframe i on a KITTI-like forward corridor: 0.8 m a
+    keyframe along z, a gentle yaw (0.6 mrad a keyframe) and a 0.3 m sway
+    (tests/test_capacity_scale.py's ``_corridor_pose``)."""
+    yaw = 0.0006 * i
+    R = np.array([[np.cos(yaw), 0, np.sin(yaw)],
+                  [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    C = np.array([0.3 * np.sin(0.01 * i), 0.0, 0.8 * i], np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R.T
+    T[:3, 3] = -R.T @ C
+    return T
+
+
+def integrate_drift(Sij_chain: np.ndarray, S0: np.ndarray, drift) -> np.ndarray:
+    """Open-loop odometry with a drift per link: S[k+1] = exp(drift) Sij[k]
+    S[k], S[0] = S0. ``Sij_chain`` (K-1, 8); returns (K, 8) float32."""
+    import torch
+
+    from ..ops import geometry as geo
+    from ..ops import sim3_np
+
+    Sd = geo.sim3_exp(torch.tensor(np.asarray(drift, np.float32))[None])[0].numpy()
+    out = [np.asarray(S0, np.float32)]
+    for Sij in Sij_chain:
+        out.append(sim3_np.compose(Sd, sim3_np.compose(Sij, out[-1])))
+    return np.stack(out).astype(np.float32)
+
+
+def scale_graph(kind: str, K: int = 2000):
+    """The 2000-vertex drifted essential graphs of the reference's scale
+    tests, built with numpy:
+
+    - "corridor": tests/test_capacity_scale.py::TestEssentialGraphScale, the
+      corridor's odometry chain, the loop edge (0, K - 1) and a span-7
+      covisibility edge every 15th keyframe, drift 0.004 m in z and 0.0004
+      in log-scale a link;
+    - "circle": tests/test_bow_posegraph.py::test_large_graph_cg, a radius-5
+      circle, the loop edge and a span-5 edge every 10th keyframe, drift
+      0.002 in x and 0.0005 in log-scale a link.
+
+    Keyframe 0 is fixed. Returns ((S_init, fixed, valid, edge_i, edge_j,
+    edge_Sij, edge_valid) as numpy arrays, the arguments of
+    ``ops.pose_graph.optimize_pose_graph``, and S_true (K, 8))."""
+    from ..ops import sim3_np
+
+    i = np.arange(K, dtype=np.float32)
+    drift = np.zeros(7, np.float32)
+    if kind == "corridor":
+        S_true = _yaw_sim3(0.0006 * i, np.stack(
+            [0.3 * np.sin(0.01 * i), 0 * i, 0.8 * i], -1))
+        extra = [(k + 7, k) for k in range(0, K - 10, 15)]
+        drift[2], drift[6] = 0.004, 0.0004
+    elif kind == "circle":
+        a = 2 * np.pi * i / K
+        S_true = _yaw_sim3(a, np.stack([5 * np.sin(a), 0 * a, 5 * (1 - np.cos(a))], -1))
+        extra = [(k + 5, k) for k in range(0, K - 5, 10)]
+        drift[0], drift[6] = 0.002, 0.0005
+    else:
+        raise ValueError(f"kind must be corridor or circle, got {kind!r}")
+    ei = np.array(list(range(1, K)) + [0] + [e[0] for e in extra], np.int32)
+    ej = np.array(list(range(0, K - 1)) + [K - 1] + [e[1] for e in extra], np.int32)
+    Sij = sim3_np.compose(S_true[ei], sim3_np.inverse(S_true[ej])).astype(np.float32)
+    S_init = integrate_drift(Sij[:K - 1], S_true[0], drift)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    return (S_init, fixed, np.ones(K, bool), ei, ej, Sij,
+            np.ones(len(ei), bool)), S_true
+
+
+def corridor_map(m, n_kf: int, fx: float, fy: float, cx: float, cy: float,
+                 p_new: int = 12, span: int = 4, depth=(3.0, 8.0),
+                 seed: int = 7) -> list:
+    """tests/test_capacity_scale.py::TestGbaSweep's map, built on ``m``
+    through the MapState API (``add_keyframe``, ``add_map_points_batch``,
+    ``add_observations_batch``, ``update_connections``; the port's MapState
+    or the reference's): ``n_kf`` keyframes on ``corridor_pose``, each
+    stored under an independent local warp W centred at its camera (2 mrad
+    of rotation, 2 cm of translation; none for keyframe 0), so the stored
+    pose is T_true W^-1. Each keyframe makes ``p_new`` points ahead of it
+    (x in +-2 m, y in +-1.5 m, ``depth`` in z; a depth range past the
+    corridor's 0.8 m a keyframe times ``span`` keeps every observer in
+    front), stored under its warp; each point is seen by ``span``
+    consecutive keyframes, its measurements the true points projected
+    through the true poses with (fx, fy, cx, cy): exact, the error lives
+    in the stored state only. Returns the keyframe ids in creation order."""
+    import torch
+
+    from ..ops import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    NF = m.kf_xy.shape[1]
+    pend_ids = np.empty(0, np.int64)
+    pend_pw = np.empty((0, 3), np.float32)
+    pend_left = np.empty(0, np.int64)
+    kf_ids = []
+    for i in range(n_kf):
+        Tt = corridor_pose(i)
+        Twc = np.linalg.inv(Tt)
+        W = np.eye(4, dtype=np.float32)
+        if i > 0:
+            W[:3, :3] = geo.so3_exp(
+                torch.tensor(rng.normal(0, 0.002, 3), dtype=torch.float32)).numpy()
+            C = Twc[:3, 3]
+            W[:3, 3] = C - W[:3, :3] @ C + rng.normal(0, 0.02, 3)
+        Td = (Tt @ np.linalg.inv(W)).astype(np.float32)
+        pc = np.stack([rng.uniform(-2, 2, p_new), rng.uniform(-1.5, 1.5, p_new),
+                       rng.uniform(depth[0], depth[1], p_new)], 1).astype(np.float32)
+        pw_true = pc @ Twc[:3, :3].T + Twc[:3, 3]
+        obs_pw = np.concatenate([pw_true, pend_pw])[:NF]
+        n_obs = len(obs_pw)
+        pci = obs_pw @ Tt[:3, :3].T + Tt[:3, 3]
+        xy = np.zeros((NF, 2), np.float32)
+        xy[:n_obs, 0] = fx * pci[:, 0] / pci[:, 2] + cx
+        xy[:n_obs, 1] = fy * pci[:, 1] / pci[:, 2] + cy
+        valid = np.zeros(NF, bool)
+        valid[:n_obs] = True
+        kf = m.add_keyframe(Td, xy, rng.integers(0, 256, (NF, 32), dtype=np.uint8),
+                            np.zeros(NF, np.int32), np.zeros(NF, np.float32),
+                            valid, i, i / 30.0)
+        kf_ids.append(kf)
+        n_fresh = min(p_new, n_obs)
+        pw_stored = pw_true[:n_fresh] @ W[:3, :3].T + W[:3, 3]
+        new_ids = m.add_map_points_batch(pw_stored.astype(np.float32), kf)
+        m.add_observations_batch(np.concatenate([new_ids, pend_ids])[:n_obs], kf,
+                                 np.arange(n_obs))
+        m.update_connections(kf)
+        keep = pend_left > 1
+        pend_ids = np.concatenate([new_ids, pend_ids[keep]])
+        pend_pw = np.concatenate([pw_true[:n_fresh], pend_pw[keep]])
+        pend_left = np.concatenate([np.full(n_fresh, span - 1), pend_left[keep] - 1])
+    return kf_ids

@@ -1169,14 +1169,93 @@ def test_pose_graph_matches_plain(cuda, K):
 
 
 def test_pose_graph_refuses_cg_size(cuda):
-    """Past 384 vertices the dense path raises (the CG solver is slice 8b)."""
-    from orbslam2_tpu_torch.kernels import pose_graph
+    """Past 384 vertices kernel P hands the graph to kernel P' (matrix-free
+    CG): on a drifted 385-keyframe ring it launches P' once and P never,
+    and P''s pose vectors are within 2e-3 of the plain CG's and of P's
+    dense solve of the same graph (the reference's test_cg_matches_dense
+    tolerance)."""
+    from orbslam2_tpu_torch.kernels import pose_graph, pose_graph_cg
 
     from orbslam2_tpu_torch.utils.synthetic import pose_graph_ring
 
     args, _ = pose_graph_ring(385)
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        pose_graph.optimize_pose_graph(*[a.to(cuda) for a in args])
+    args = [a.to(cuda) for a in args]
+    kernels.reset_launches()
+    rk = pose_graph.optimize_pose_graph(*args, fix_scale=True)
+    assert (pose_graph.launches, pose_graph_cg.launches) == (0, 1)
+    rp = pose_graph_cg.optimize_pose_graph_plain(*args, fix_scale=True)
+    rd = pose_graph.optimize_pose_graph(*args, fix_scale=True, solver="dense")
+    assert (rk.poses - rp.poses).abs().max().item() < 2e-3
+    assert (rk.poses - rd.poses).abs().max().item() < 2e-3
+    its = pose_graph_cg.last_cg_iterations.cpu()
+    assert its.shape == (20,) and (its > 0).all() and (its <= 385).all()
+
+
+def _centre(S):
+    from orbslam2_tpu_torch.ops import geometry as geo
+
+    R, t, s = geo.sim3_R(S), geo.sim3_t(S), geo.sim3_s(S)
+    return -(R.transpose(-1, -2) @ t[..., None])[..., 0] / s[..., None]
+
+
+@pytest.mark.parametrize("kind", ["circle", "corridor"])
+def test_pose_graph_cg_at_scale(cuda, kind):
+    """Kernel P' on the reference's two 2000-vertex graphs
+    (utils/synthetic.scale_graph) with the reference tests' assertions:
+    finite, the far end's centre error below 0.2 of its start, and on the
+    corridor the drifted scale removed (|log s| < 0.05). On the circle its
+    pose vectors are within 2e-3 of the plain CG's on the card. The
+    corridor's CG meets its 600-iteration cap in most LM iterations without
+    reaching 1e-10, and its result is not determined to float32 rounding:
+    the plain version's own result moves by 7 in its pose vectors when the
+    start's translations move by 1e-7 of themselves (measured on the CPU),
+    so there both versions are held to the reference's assertions."""
+    from orbslam2_tpu_torch.kernels import pose_graph_cg
+    from orbslam2_tpu_torch.ops import geometry as geo
+    from orbslam2_tpu_torch.utils.synthetic import scale_graph
+
+    args, S_true = scale_graph(kind)
+    args = [torch.from_numpy(a).to(cuda) for a in args]
+    S_true = torch.from_numpy(S_true).to(cuda)
+    rk = pose_graph_cg.optimize_pose_graph(*args)
+    rp = pose_graph_cg.optimize_pose_graph_plain(*args)
+    e_init = (_centre(args[0][-1]) - _centre(S_true[-1])).norm().item()
+    for S in (rk.poses, rp.poses):
+        assert torch.isfinite(S).all()
+        e_opt = (_centre(S[-1]) - _centre(S_true[-1])).norm().item()
+        assert e_opt < 0.2 * e_init, (e_init, e_opt)
+        if kind == "corridor":
+            assert geo.sim3_s(S).log().abs().max().item() < 0.05
+    if kind == "circle":
+        assert (rk.poses - rp.poses).abs().max().item() < 2e-3
+
+
+def test_loop_closer_dispatches_cg(cuda):
+    """The loop closer's essential graph on a map of 400 keyframe slots
+    (past DENSE_MAX_K): a 400-keyframe corridor (utils/synthetic.
+    corridor_map) with a loop edge from its last keyframe to its first
+    launches kernel P' once and kernel P never, and writes finite poses
+    back."""
+    from orbslam2_tpu_torch.kernels import pose_graph, pose_graph_cg
+    from orbslam2_tpu_torch.loop_closing import LoopCloser
+    from orbslam2_tpu_torch.map.keyframe_database import KeyFrameDatabase
+    from orbslam2_tpu_torch.map.state import MapState
+    from orbslam2_tpu_torch.utils.synthetic import corridor_map
+
+    cfg = SlamConfig(sensor="rgbd",
+                     camera=CameraConfig(fx=260, fy=260, cx=160, cy=120,
+                                         width=320, height=240, bf=26.0, fps=30),
+                     extractor=ExtractorConfig(n_features=200, n_levels=4))
+    m = MapState.allocate(cfg, device=cuda)
+    kfs = corridor_map(m, 400, 260.0, 260.0, 160.0, 120.0)
+    m.loop_edges.append((kfs[-1], kfs[0]))
+    cam = Camera.create(260.0, 260.0, 160.0, 120.0, bf=26.0, width=320, height=240)
+    closer = LoopCloser(cfg, m, cam, KeyFrameDatabase(m, device=cuda))
+    kernels.reset_launches()
+    closer._optimize_essential_graph(kfs[-1], kfs[0], {}, {})
+    assert m.n_kf > 384
+    assert (pose_graph.launches, pose_graph_cg.launches) == (0, 1)
+    assert np.isfinite(m.kf_pose[kfs]).all()
 
 
 def test_rendered_circuit_closes_loop_and_improves_ate(cuda):

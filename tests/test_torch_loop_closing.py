@@ -199,7 +199,8 @@ def test_gba_matches_reference(jax_closed):
     jlc, jm = jax_closed[:2]
     plc = _port_closer(jm)
     pm = plc.map
-    jsnap, psnap = jlc._gba_gather(None, None, 8), plc._gba_gather(8)
+    jsnap = jlc._gba_gather(None, None, 8)
+    psnap = plc._gba_gather(None, None, 8)
     K, n = _gathers_equal(jsnap, psnap)
     jres = jlc._gba_solve(jsnap[0], 3, False)
     pres = plc._gba_solve(psnap[0], 3)
@@ -216,7 +217,8 @@ def test_gba_matches_reference(jax_closed):
     left_out = in_order[len(in_order) // 2:][:2]
     for m in (jm, pm):
         m.kf_valid[left_out] = False
-    jsnap, psnap = jlc._gba_gather(None, None, 8), plc._gba_gather(8)
+    jsnap = jlc._gba_gather(None, None, 8)
+    psnap = plc._gba_gather(None, None, 8)
     for m in (jm, pm):
         m.kf_valid[left_out] = True
     K, n = _gathers_equal(jsnap, psnap)
@@ -262,7 +264,7 @@ def test_gba_padded_matches_live_size(closed):
     np.testing.assert_allclose(float(r.cost), float(rp.cost), rtol=1e-3)
 
     lc, _, _ = closed
-    gathered, kfs, _, _, n_ids = lc._gba_gather(8)
+    gathered, kfs, _, _, n_ids = lc._gba_gather(None, None, 8)
     assert gathered.poses.shape[0] == len(kfs) == len(lc.map.valid_keyframes())
     assert gathered.points.shape[0] == n_ids
     lc.global_bundle_adjustment()

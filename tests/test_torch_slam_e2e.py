@@ -87,28 +87,41 @@ class TestRgbdPipeline:
         assert len(kf_tum.read_text().strip().splitlines()) == \
             len(slam.map.valid_keyframes())
 
-    def test_unported_paths_raise(self, rgbd_sequence):
+    def test_unported_paths_raise(self, rgbd_sequence, monkeypatch, capsys):
         img = rgbd_sequence[0][0][0]
-        # loop closing is ported (slice 8) and on by default; what only
-        # maps past the reference's largest single solves reach waits for
-        # slice 8b: the GBA sweep past 256 live keyframes ...
+        # loop closing is ported (slices 8 and 8b) and on by default; past
+        # the reference's largest single solves, global BA over 257 live
+        # keyframes enters the overlapping-window sweep (windows of 256,
+        # overlap 64: two windows) ...
         closer = SlamSystem(_cfg(), device="cpu").loop_closer
         assert closer is not None
         closer.map.kf_valid[:257] = True
         closer.map.n_kf = 257
-        with pytest.raises(NotImplementedError, match="slice 8b"):
-            closer.global_bundle_adjustment()
-        # ... and the conjugate-gradient pose graph past 384 vertices
+        sweeps = []
+        sweep = closer._gba_sweep
+        monkeypatch.setattr(closer, "_gba_sweep",
+                            lambda *a, **k: sweeps.append(k) or sweep(*a, **k))
+        closer.global_bundle_adjustment()
+        assert sweeps == [dict(window=256, max_points=32768, overlap=64)]
+        assert "sweep: 257 KFs in 2 windows of 256 (overlap 64)" in \
+            capsys.readouterr().out
+        # ... and the pose graph past 384 vertices runs the conjugate-
+        # gradient solver, one CG solve per LM iteration
         from orbslam2_tpu_torch.ops import pose_graph
 
         K = pose_graph.DENSE_MAX_K + 1
         S = torch.zeros((K, 8))
         S[:, :2] = 1.0
         e = torch.zeros(1, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="slice 8b"):
-            pose_graph.optimize_pose_graph(
-                S, torch.zeros(K, dtype=torch.bool), torch.ones(K, dtype=torch.bool),
-                e, e + 1, S[:1], torch.ones(1, dtype=torch.bool))
+        solves = []
+        cg = pose_graph.cg_solve
+        monkeypatch.setattr(pose_graph, "cg_solve",
+                            lambda *a, **k: solves.append(1) or cg(*a, **k))
+        res = pose_graph.optimize_pose_graph(
+            S, torch.zeros(K, dtype=torch.bool), torch.ones(K, dtype=torch.bool),
+            e, e + 1, S[:1], torch.ones(1, dtype=torch.bool))
+        assert len(solves) == 20
+        assert res.poses.shape == (K, 8) and torch.isfinite(res.poses).all()
         # stereo and monocular are ported (slice 6): a first frame runs
         for sensor in ("monocular", "stereo"):
             cfg = _cfg()

@@ -86,7 +86,7 @@ _SIGNATURES = {
     "osl_cholesky_solve_blocked": [_P, _I, _P, _P, _P],
     "osl_ba_solve_blocked": [_P] * 5 + [_I] + [_P] * 6,
     "osl_pose_graph": [_P] * 8 + [_I] * 4 + [_P] * 4,
-    "osl_pose_graph_cg": [_P] * 8 + [_I] * 4 + [_P] * 4,
+    "osl_pose_graph_cg": [_P] * 10 + [_I] * 5 + [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,12 +8,12 @@
 // and its cost test and the write-back are kernel P's (pose_graph.cuh).
 //
 //   pose_graph_prepare      one block, as in P.
-//   per LM iteration (iters of them), a memset of b, then:
+//   per LM iteration (iters of them):
 //     pose_graph_cg_linearize  a thread per edge: the residual and its
-//                              Jacobians in dual numbers (as P), the edge's
-//                              blocks Hii, Hjj, Hij (3 x 49 floats) stored,
-//                              the gradient added into b (K, 7) by float
-//                              atomics; the (7K)^2 system is never formed.
+//                              Jacobians in dual numbers (as P); the edge's
+//                              blocks Hii, Hjj, Hij and its gradients b_i,
+//                              b_j (3 x 49 + 14 floats) stored; the (7K)^2
+//                              system is never formed.
 //     pose_graph_cg_chain      a thread per chain position k (``order``):
 //                              the pseudo-edge from k to k - 1 (position 0
 //                              to the last) measured by the current
@@ -32,28 +32,34 @@
 //                              k >= 2^d. The products are fixed for the
 //                              whole CG solve, so each application of the
 //                              preconditioner is vector work only.
-//     pose_graph_cg_solve      ONE block runs the whole CG solve: at most
-//                              min(K, 600) iterations while r.z > 1e-10 of
-//                              its start, tested on the device. The matvec
-//                              is the per-edge block products added by
-//                              float atomics, frozen rows mapped to
-//                              themselves, + lam v; the preconditioner is
-//                              A^-T by the backward doubling scan, then A^-1
-//                              by the forward one (double-buffered levels,
-//                              a barrier each); the dot products are block
-//                              reductions in a fixed order. It writes the
-//                              step into b and its iteration count into the
-//                              workspace.
+//     pose_graph_cg_solve      ONE block runs the whole CG solve: the
+//                              gradient b, then at most min(K, 600)
+//                              iterations (or the caller's cap, cg_cap > 0)
+//                              while r.z > 1e-10 of its start,
+//                              tested on the device. The matvec is
+//                              (H + lam I) d with frozen rows mapped to
+//                              themselves; the preconditioner is A^-T by
+//                              the backward doubling scan, then A^-1 by the
+//                              forward one (double-buffered levels, a
+//                              barrier each). It writes the step into b and
+//                              its iteration count into the workspace.
 //     pose_graph_update        one block, as in P (dx = -b).
 //   pose_graph_finish       as in P.
+// Every sum is taken in a fixed order, so a call's result is the same from
+// run to run: a thread per row of b and of the matvec adds the blocks of
+// the vertex's incident edges in the order of the incidence list (the
+// edge ends sorted by vertex, stably, in the wrapper), and the dot products
+// are block reductions in a fixed order. Float atomics here would make each
+// run's rounding differ, and where CG meets its 600-iteration cap that
+// rounding decides the result (PERF.md section 7).
 // One block and not a cooperative grid: a CG iteration is ~25 barriers
 // (2 log2 K scan levels, the matvec, three dot products) over a few
-// microseconds of work each, which one block's __syncthreads keeps cheap,
-// its reductions deterministic and its launch free of occupancy limits.
+// microseconds of work each, which one block's __syncthreads keeps cheap
+// and its launch free of occupancy limits.
 // Bound: operations (the dual-number linearization), then per CG
 // iteration the two scans' level matrices (2 x log2 K x K x 49 floats)
-// read from L2 by one SM. Launches per LM iteration: 5 + (levels - 1) and
-// a memset, whatever the number of CG iterations. Workspace O(E + K log K).
+// read from L2 by one SM. Launches per LM iteration: 5 + (levels - 1),
+// whatever the number of CG iterations. Workspace O(E + K log K).
 #include "pose_graph.cuh"
 
 namespace {
@@ -61,9 +67,12 @@ namespace {
 constexpr int kSolveThreads = 512;
 constexpr int kBlock = kD * kD;     // 49 floats of a 7x7 block
 constexpr int kEdgeBlocks = 3 * kBlock;
+constexpr int kEdgeFloats = kEdgeBlocks + 2 * kD;  // + the gradients b_i, b_j
 
 struct CG {
-  float* H;      // (E, 3, 7, 7) Hii, Hjj, Hij of each edge
+  const int* inc_ptr;  // (K + 1,) each vertex's run of ``inc``
+  const int* inc;      // (2E,) edge ends by vertex: e (as i) or E + e (as j)
+  float* H;      // (E, 161) Hii, Hjj, Hij (7, 7) and b_i, b_j (7) of each edge
   float* Ainv;   // (K, 7, 7) A^-1 in chain order
   float* B;      // (K, 7, 7) B in chain order
   float* Lf;     // (L, K, 7, 7) forward scan levels, chain order
@@ -76,6 +85,7 @@ struct CG {
   float* s0;     // (K, 7) the scans' two buffers
   float* s1;
   int L;         // scan levels: 2^d < K for d < L
+  int cg_max;    // CG iterations at most: min(K, 600), or the caller's cap
   int* iters;    // (iters,) CG iterations of each LM iteration
 };
 
@@ -103,12 +113,8 @@ __device__ void edge_jacobians(const float* xi, const float* xj, const float* M,
 
 __global__ void __launch_bounds__(64) pose_graph_cg_linearize(PG p, CG c) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p.E) return;
-  float* H = c.H + static_cast<size_t>(kEdgeBlocks) * e;
-  if (!p.ev[e]) {
-    for (int t = 0; t < kEdgeBlocks; ++t) H[t] = 0.0f;
-    return;
-  }
+  if (e >= p.E || !p.ev[e]) return;
+  float* H = c.H + static_cast<size_t>(kEdgeFloats) * e;
   const int i = p.ei[e], j = p.ej[e];
   float Ji[7][7], Jj[7][7], rv[7];
   edge_jacobians(p.x + kD * i, p.x + kD * j, p.Me + 8 * e, p.Sij + 8 * e, Ji, Jj,
@@ -119,8 +125,8 @@ __global__ void __launch_bounds__(64) pose_graph_cg_linearize(PG p, CG c) {
       gi += Ji[q][a] * rv[q];
       gj += Jj[q][a] * rv[q];
     }
-    atomicAdd(p.b + kD * i + a, gi);
-    atomicAdd(p.b + kD * j + a, gj);
+    H[kEdgeBlocks + a] = gi;
+    H[kEdgeBlocks + kD + a] = gj;
     for (int b = 0; b < kD; ++b) {
       float hii = 0.0f, hjj = 0.0f, hij = 0.0f;
       for (int q = 0; q < kD; ++q) {
@@ -315,30 +321,38 @@ __device__ void precond(const PG& p, const CG& c, const float* r, float* z) {
   __syncthreads();
 }
 
-// y = (H + lam I) d with frozen rows mapped to themselves
-__device__ void matvec(const PG& p, const CG& c, const float* d, float* y) {
-  const int n = kD * p.K;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) y[t] = 0.0f;
-  __syncthreads();
-  for (int e = threadIdx.x; e < p.E; e += blockDim.x) {
+// row a of vertex v summed over its incident valid edges in the incidence
+// list's order: the gradient b (d == nullptr) or the row of H d
+__device__ float incident_row(const PG& p, const CG& c, int v, int a,
+                              const float* d) {
+  float s = 0.0f;
+  for (int q = c.inc_ptr[v]; q < c.inc_ptr[v + 1]; ++q) {
+    const bool as_j = c.inc[q] >= p.E;
+    const int e = as_j ? c.inc[q] - p.E : c.inc[q];
     if (!p.ev[e]) continue;
-    const float* H = c.H + static_cast<size_t>(kEdgeBlocks) * e;
+    const float* H = c.H + static_cast<size_t>(kEdgeFloats) * e;
+    if (d == nullptr) {
+      s += H[kEdgeBlocks + (as_j ? kD : 0) + a];
+      continue;
+    }
     const float* di = d + kD * p.ei[e];
     const float* dj = d + kD * p.ej[e];
-    for (int a = 0; a < kD; ++a) {
-      float yi = 0.0f, yj = 0.0f;
-      for (int m = 0; m < kD; ++m) {
-        yi += H[kD * a + m] * di[m] + H[2 * kBlock + kD * a + m] * dj[m];
-        yj += H[2 * kBlock + kD * m + a] * di[m] + H[kBlock + kD * a + m] * dj[m];
-      }
-      atomicAdd(y + kD * p.ei[e] + a, yi);
-      atomicAdd(y + kD * p.ej[e] + a, yj);
+    float t = 0.0f;
+    for (int m = 0; m < kD; ++m) {
+      t += as_j ? H[2 * kBlock + kD * m + a] * di[m] + H[kBlock + kD * a + m] * dj[m]
+                : H[kD * a + m] * di[m] + H[2 * kBlock + kD * a + m] * dj[m];
     }
+    s += t;
   }
-  __syncthreads();
+  return s;
+}
+
+// y = (H + lam I) d with frozen rows mapped to themselves
+__device__ void matvec(const PG& p, const CG& c, const float* d, float* y) {
   const float lam = p.lam[0];
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    y[t] = p.freeze[t / kD] ? d[t] : y[t] + lam * d[t];
+  for (int t = threadIdx.x; t < kD * p.K; t += blockDim.x) {
+    const int v = t / kD;
+    y[t] = p.freeze[v] ? d[t] : incident_row(p, c, v, t % kD, d) + lam * d[t];
   }
   __syncthreads();
 }
@@ -348,7 +362,7 @@ __global__ void __launch_bounds__(kSolveThreads) pose_graph_cg_solve(PG p, CG c,
   __shared__ float scratch[32];
   const int K = p.K, n = kD * K;
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    c.r[t] = p.freeze[t / kD] ? 0.0f : p.b[t];
+    c.r[t] = p.freeze[t / kD] ? 0.0f : incident_row(p, c, t / kD, t % kD, nullptr);
     c.v[t] = 0.0f;
   }
   __syncthreads();
@@ -357,9 +371,8 @@ __global__ void __launch_bounds__(kSolveThreads) pose_graph_cg_solve(PG p, CG c,
   __syncthreads();
   float rz = block_dot(c.r, c.z, n, scratch);
   const float rz0 = rz;
-  const int cg_max = min(K, 600);
   int it = 0;
-  while (it < cg_max && rz > 1e-10f * rz0) {
+  while (it < c.cg_max && rz > 1e-10f * rz0) {
     matvec(p, c, c.d, c.y);
     const float alpha = rz / fmaxf(block_dot(c.d, c.y, n, scratch), 1e-20f);
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
@@ -384,9 +397,10 @@ __global__ void __launch_bounds__(kSolveThreads) pose_graph_cg_solve(PG p, CG c,
 OSL_EXPORT int osl_pose_graph_cg(const float* S_init, const uint8_t* fixed,
                                  const uint8_t* valid, const int* ei, const int* ej,
                                  const float* Sij, const uint8_t* ev,
-                                 const int* order, int K, int E, int iters,
-                                 int fix_scale, float* ws, int* iws, float* out,
-                                 void* stream) {
+                                 const int* order, const int* inc_ptr,
+                                 const int* inc, int K, int E, int iters,
+                                 int fix_scale, int cg_cap, float* ws, int* iws,
+                                 float* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t Kz = K, n = static_cast<size_t>(kD) * K;
   PG p;
@@ -394,13 +408,16 @@ OSL_EXPORT int osl_pose_graph_cg(const float* S_init, const uint8_t* fixed,
   p.Sij = Sij; p.ev = ev; p.order = order; p.K = K; p.E = E;
   p.fix_scale = fix_scale;
   CG c;
+  c.inc_ptr = inc_ptr;
+  c.inc = inc;
+  c.cg_max = cg_cap > 0 ? cg_cap : min(K, 600);
   c.L = 1;
   while ((2 << (c.L - 1)) < K) ++c.L;
   // the float workspace, in this order (pose_graph_cg.workspace_floats):
-  // the shared part, then the edge blocks, b, A^-1, B, both scans' levels
-  // and seven (K, 7) vectors
+  // the shared part, then the edge blocks and gradients, the step b, A^-1,
+  // B, both scans' levels and seven (K, 7) vectors
   float* w = layout_common(p, ws, iws);
-  c.H = w; w += static_cast<size_t>(kEdgeBlocks) * E;
+  c.H = w; w += static_cast<size_t>(kEdgeFloats) * E;
   p.H = nullptr;
   p.b = w; w += n;
   c.Ainv = w; w += kBlock * Kz;
@@ -419,7 +436,6 @@ OSL_EXPORT int osl_pose_graph_cg(const float* S_init, const uint8_t* fixed,
   pose_graph_prepare<<<1, kThreads, 0, st>>>(p);
   const unsigned kb = (K + 63) / 64;
   for (int it = 0; it < iters; ++it) {
-    cudaMemsetAsync(p.b, 0, n * sizeof(float), st);
     if (E > 0) pose_graph_cg_linearize<<<(E + 63) / 64, 64, 0, st>>>(p, c);
     pose_graph_cg_chain<<<kb, 64, 0, st>>>(p, c);
     pose_graph_cg_maps<<<kb, 64, 0, st>>>(p, c);

@@ -114,7 +114,7 @@ def prepare(S_init, fixed, valid, edge_i, edge_j, edge_Sij, edge_valid,
     # chain re-integration: re-compose the measured temporal links
     inv_ord = torch.argsort(order)
     S0p = S0[order]
-    M_ch = geo.sim3_compose(S0p, geo.sim3_inverse(torch.roll(S0p, 1, 0)))
+    M_ch = chain_links(S0, order)
     a_ids, b_ids = order, torch.roll(order, 1)
     live = edge_valid[None, :]
 
@@ -165,6 +165,13 @@ def prepare(S_init, fixed, valid, edge_i, edge_j, edge_Sij, edge_valid,
     c_ramp, _ = total_cost(x_ramp)
     x_init = torch.where(c_ramp < c_best, x_ramp, x_best)
     return x_init, S0, W_inv, M_e, freeze, M_ch
+
+
+def chain_links(S0, order):
+    """The chain's relative base poses M_ch (K, 8): position k's base
+    times the inverse of position k - 1's (position 0: the last's)."""
+    S0p = S0[order]
+    return geo.sim3_compose(S0p, geo.sim3_inverse(torch.roll(S0p, 1, 0)))
 
 
 def edge_blocks(x, edge_i, edge_j, M_e, edge_Sij, edge_valid, freeze):
@@ -280,16 +287,31 @@ def affine_scan(levels, c):
     return c
 
 
-def cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order, Ainv,
-             M_fwd, M_bwd):
-    """The reference's PCG for (H + lam I) v = b with frozen rows as
-    identity rows: at most min(K, 600) iterations while the preconditioned
-    residual r.z exceeds 1e-10 of its start. Returns (v, iterations)."""
-    K = b.shape[0]
+def pair_blocks(Hii, Hjj, Hij):
+    """Each edge's block row pair [[Hii, Hij], [Hij^T, Hjj]] (E, 14, 14)."""
+    return torch.cat([torch.cat([Hii, Hij], 2),
+                      torch.cat([Hij.transpose(1, 2), Hjj], 2)], 1)
+
+
+def matvec(H, v, edge_i, edge_j, lam, freeze):
+    """(H + lam I) v from the edges' block pairs H (``pair_blocks``), frozen
+    rows mapped to themselves."""
     ei, ej = edge_i.long(), edge_j.long()
-    # each edge's block row pair [[Hii, Hij], [Hij^T, Hjj]] (E, 14, 14)
-    H = torch.cat([torch.cat([Hii, Hij], 2),
-                   torch.cat([Hij.transpose(1, 2), Hjj], 2)], 1)
+    ye = (H @ torch.cat([v[ei], v[ej]], 1)[..., None])[..., 0]
+    y = torch.zeros_like(v)
+    y.index_add_(0, ei, ye[:, :D])
+    y.index_add_(0, ej, ye[:, D:])
+    return torch.where(freeze[:, None], v, y + lam * v)
+
+
+def cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order, Ainv,
+             M_fwd, M_bwd, max_cg: Optional[int] = None):
+    """The reference's PCG for (H + lam I) v = b with frozen rows as
+    identity rows: at most min(K, 600) iterations (``max_cg`` if given)
+    while the preconditioned residual r.z exceeds 1e-10 of its start.
+    Returns (v, iterations)."""
+    K = b.shape[0]
+    H = pair_blocks(Hii, Hjj, Hij)
     inv_ord = torch.argsort(order)
     fwd, bwd = scan_levels(M_fwd), scan_levels(M_bwd.flip(0))
     AinvT = Ainv.transpose(1, 2)
@@ -302,21 +324,14 @@ def cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order, Ainv,
         xs = affine_scan(fwd, (Ainv @ y[..., None])[..., 0])
         return torch.where(fz, r, xs[inv_ord])
 
-    def matvec(v):
-        ye = (H @ torch.cat([v[ei], v[ej]], 1)[..., None])[..., 0]
-        y = torch.zeros_like(v)
-        y.index_add_(0, ei, ye[:, :D])
-        y.index_add_(0, ej, ye[:, D:])
-        return torch.where(fz, v, y + lam * v)
-
     v = torch.zeros_like(b)
-    r = b - matvec(v)
+    r = b - matvec(H, v, edge_i, edge_j, lam, freeze)
     z = precond(r)
     p = z
     rz = rz0 = (r * z).sum()
-    it, cg_max = 0, min(K, 600)
+    it, cg_max = 0, min(K, 600) if max_cg is None else max_cg
     while it < cg_max and bool(rz > 1e-10 * rz0):
-        Ap = matvec(p)
+        Ap = matvec(H, p, edge_i, edge_j, lam, freeze)
         alpha = rz / (p * Ap).sum().clamp_min(1e-20)
         v = v + alpha * p
         r = r - alpha * Ap
@@ -331,10 +346,12 @@ def cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order, Ainv,
 def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
                         edge_valid, iters: int = 20, fix_scale: bool = False,
                         order: Optional[torch.Tensor] = None,
-                        solver: str = "auto") -> PoseGraphResult:
+                        solver: str = "auto",
+                        max_cg: Optional[int] = None) -> PoseGraphResult:
     """``solver``: "auto" (dense for K <= DENSE_MAX_K, else CG), "dense" or
     "cg". ``order``: the temporal vertex order of the CG chain (creation
-    order, dead slots last); slot order by default."""
+    order, dead slots last); slot order by default. ``max_cg``: a cap on
+    each CG solve below the reference's min(K, 600) iterations."""
     K = S_init.shape[0]
     if solver not in ("auto", "dense", "cg"):
         raise ValueError(f"solver must be auto, dense or cg, got {solver!r}")
@@ -355,7 +372,7 @@ def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
         else:
             Hii, Hjj, Hij, b = edge_blocks(x, *edges, freeze)
             v, _ = cg_solve(Hii, Hjj, Hij, b, edge_i, edge_j, lam, freeze, order,
-                            *chain_factor(x, M_ch, order, freeze))
+                            *chain_factor(x, M_ch, order, freeze), max_cg=max_cg)
             dx = -v
         x_new = apply_step(x, dx, freeze, fix_scale)
         cost_new = edge_cost(x_new, *edges)

@@ -1209,7 +1209,10 @@ def test_pose_graph_cg_at_scale(cuda, kind):
     reaching 1e-10, and its result is not determined to float32 rounding:
     the plain version's own result moves by 7 in its pose vectors when the
     start's translations move by 1e-7 of themselves (measured on the CPU),
-    so there both versions are held to the reference's assertions."""
+    so there both versions are held to the reference's assertions. On both
+    graphs a second call of P' gives the same result bit for bit, and with
+    one CG iteration a solve (max_cg=1, determined by the inputs) P''s pose
+    vectors are within 2e-3 of the plain version's."""
     from orbslam2_tpu_torch.kernels import pose_graph_cg
     from orbslam2_tpu_torch.ops import geometry as geo
     from orbslam2_tpu_torch.utils.synthetic import scale_graph
@@ -1228,6 +1231,10 @@ def test_pose_graph_cg_at_scale(cuda, kind):
             assert geo.sim3_s(S).log().abs().max().item() < 0.05
     if kind == "circle":
         assert (rk.poses - rp.poses).abs().max().item() < 2e-3
+    assert torch.equal(pose_graph_cg.optimize_pose_graph(*args).poses, rk.poses)
+    r1k = pose_graph_cg.optimize_pose_graph(*args, max_cg=1)
+    r1p = pose_graph_cg.optimize_pose_graph_plain(*args, max_cg=1)
+    assert (r1k.poses - r1p.poses).abs().max().item() < 2e-3
 
 
 def test_loop_closer_dispatches_cg(cuda):

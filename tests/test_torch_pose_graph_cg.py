@@ -12,8 +12,9 @@ import torch
 
 from orbslam2_tpu.ops import geometry as jgeo
 from orbslam2_tpu.ops import pose_graph as jpose_graph
-from orbslam2_tpu_torch.kernels import pose_graph
+from orbslam2_tpu_torch.kernels import pose_graph, pose_graph_cg
 from orbslam2_tpu_torch.ops import pose_graph as pg_ops
+from orbslam2_tpu_torch.utils.synthetic import pose_graph_ring
 from test_bow_posegraph import _circle_poses
 
 torch.set_num_threads(2)
@@ -81,3 +82,66 @@ def test_doubling_scan_matches_sequential_recurrence():
     for k in reversed(range(K)):
         x = M[k] @ x + c[k]
     assert np.abs(back[-1].double().numpy() - x).max() / np.abs(x).max() < 1e-5
+
+
+def test_matvec_matches_dense_system():
+    """The CG's matrix-free product (H + lam I) v from the edges' block
+    pairs equals the dense normal equations' product on a drifted
+    30-keyframe ring with one edge invalid (1e-5 relative to the largest
+    entry), for v zero on the frozen rows as every CG vector is there (the
+    dense system also zeroes the frozen vertices' columns)."""
+    args, _ = pose_graph_ring(30)
+    S, fixed, valid, ei, ej, Sij, ev = args
+    ev = ev.clone()
+    ev[3] = False
+    x, _, _, M_e, freeze, _ = pg_ops.prepare(S, fixed, valid, ei, ej, Sij, ev)
+    lam = torch.tensor(1e-3)
+    Hii, Hjj, Hij, _ = pg_ops.edge_blocks(x, ei, ej, M_e, Sij, ev, freeze)
+    H, _ = pg_ops.normal_equations(x, lam, ei, ej, M_e, Sij, ev, freeze)
+    v = torch.from_numpy(np.random.default_rng(1).normal(size=(30, 7))).float()
+    v[freeze] = 0.0
+    got = pg_ops.matvec(pg_ops.pair_blocks(Hii, Hjj, Hij), v, ei, ej, lam, freeze)
+    want = (H @ v.reshape(-1)).reshape(30, 7)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_max_cg_caps_each_solve():
+    """``max_cg`` caps every LM iteration's CG solve (the plain version as
+    kernel P' takes it); the capped run never raises the cost."""
+    args, _ = pose_graph_ring(30)
+    calls = []
+    solve = pg_ops.cg_solve
+
+    def counted(*a, **k):
+        v, n = solve(*a, **k)
+        calls.append(n)
+        return v, n
+
+    pg_ops.cg_solve = counted
+    try:
+        r = pose_graph_cg.optimize_pose_graph(*args, iters=5, fix_scale=True,
+                                              max_cg=2)
+    finally:
+        pg_ops.cg_solve = solve
+    assert calls == [2] * 5
+    r0 = pose_graph_cg.optimize_pose_graph(*args, iters=0, fix_scale=True)
+    assert torch.isfinite(r.poses).all() and r.cost <= r0.cost
+
+
+def test_incidence_lists_each_vertex_edge_ends_in_order():
+    """Kernel P''s incidence list: vertex v's run holds e where v is edge
+    e's i end and E + e where it is its j end, the i ends first, each by
+    edge, so every row sum of b and of the matvec adds the same terms in
+    the same order on every call."""
+    rng = np.random.default_rng(3)
+    K, E = 12, 40
+    ei = torch.from_numpy(rng.integers(0, K, E).astype(np.int32))
+    ej = torch.from_numpy(rng.integers(0, K, E).astype(np.int32))
+    ptr, inc = pose_graph_cg.incidence(ei, ej, K)
+    assert ptr.dtype == inc.dtype == torch.int32
+    assert ptr[0] == 0 and ptr[-1] == 2 * E
+    for v in range(K):
+        run = inc[ptr[v]:ptr[v + 1]].tolist()
+        want = ([e for e in range(E) if ei[e] == v]
+                + [E + e for e in range(E) if ej[e] == v])
+        assert run == want

@@ -72,7 +72,8 @@ Phases, each printing one line:
      the ms of each synchronised stage of the closure and the GBA's K, M and
      iterations; K, M's search (bit-exact) and LM, P, F' and C's
      octave-window variant (bit-exact) against their plain versions on the
-     arguments the path gave them;
+     arguments the path gave them (M's LM against the plain LM replaying
+     the kernel's own decisions, sim3_lm_check);
   8. loop closing at map scale (scale_path): tests/test_capacity_scale.py's
      corridor built by utils/synthetic.corridor_map at the RGB-D path's
      camera and extractor (1300 keyframes, 120 new points a keyframe each
@@ -98,7 +99,30 @@ Phases, each printing one line:
      first LM iteration whose CG meets its cap; no (7K)^2 allocation), and
      the sweep's first window against the plain BA schedule, each reading
      within a fixed limit (SWEEP_LIMITS) that a control, the plain
-     schedule with its last LM iteration dropped, exceeds in the same run.
+     schedule with its last LM iteration dropped, exceeds in the same run;
+  9. the asynchronous system (async_path): (a) phase 4's 36 RGB-D frames
+     through AsyncSlamSystem (pipelined tracking at the default depths, the
+     mapping and loop-closing workers), then shutdown(), at
+     tests/test_pipeline.py's bounds scaled to 36 frames (>= 34 in the
+     trajectory, ATE < 0.08 m, >= 3 keyframes), its frames/s beside phase
+     4's; (c) the loop circuit three times through AsyncSlamSystem with
+     background global BA and the reference's back-pressure wait, each at
+     tests/test_loop_e2e.py's async bounds (a loop closes, finite poses,
+     keyframe ATE < 0.2 m), an "async" line a run (the closing frame, the
+     ATE, each GBA's ms and whether a newer one superseded it, the largest
+     keyframe queue, the fuse/BA skips, the longest track_rgbd call while a
+     closure or a GBA ran); (b) by profiler, one pipelined frame of a
+     Tracker without mapping: only I, A, J, B, L, R', O, C, Q, D, R, the
+     feature buffer's fill, memsets and uploads, one device-to-host copy
+     into pinned memory and no stream or device synchronize; (d) R'
+     against its plain version on the links (a) recorded (1e-6) and the
+     chained cascade against the plain chained cascade on (a)'s calls.
+     Counts are set to 0 before each run of (a) and (c) and read after its
+     shutdown() joined the workers; together they launch exactly
+     PATHS["async"]. Kernel M's LM is held on each circuit run's arguments
+     as in phase 7: within 1e-4 of the plain LM replaying the kernel's own
+     decisions, its inlier gate between the two phases and each LM
+     iteration's accept (sim3_lm_check).
 Phase 3 also holds the BA schedule at the largest global-BA bucket (K=256,
 M=32768, O=8, kernel F' solving), F' beside the library's Cholesky solve
 at 6K=1536, P on a drifted 384-keyframe ring against its plain version,
@@ -168,6 +192,9 @@ PATHS = {
     "scale": ("ba_linearize", "ba_solve_blocked", "ba_update_cost", "ba_accept",
               "pose_graph_cg", "point_attrs"),
 }
+# exactly these: the asynchronous RGB-D run and circuit (phase 9), the
+# circuit's kernels and the pose chain of pipelined tracking
+PATHS["async"] = PATHS["loop"] + ("pose_chain",)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores; every kernel here is float32 or
 # integer work on the CUDA cores
@@ -1861,19 +1888,16 @@ def loop_rows(dev, record, args):
            n_bytes=nbytes(*a[2:14]) + 5 * n1, per_call=2,
            n_ops=60 * (n1 + n2) + 10 * gates + 27 * pairs)
 
-    # M's LM: S12 within 1e-4, inlier counts within 1
+    # M's LM: S12 within 1e-4 of the plain LM replaying the kernel's own
+    # decisions (its gate between the phases, its accepts), counts within 1
     a, kw = args["M_opt"]
     n = a[2].shape[0]
-    rk = sim3_opt.unpack(sim3_opt.optimize_sim3(*a, **kw).cpu().numpy(), n)
-    rp = sim3_opt.unpack(sim3_opt.optimize_sim3_plain(*a, **kw).cpu().numpy(), n)
-    err_m = float(np.abs(rk.S12 - rp.S12).max())
-    check(err_m <= 1e-4 and abs(rk.n_inliers - rp.n_inliers) <= 1,
-          f"kernel M's LM: S12 {err_m}, inliers {rk.n_inliers} vs {rp.n_inliers}")
+    rk, rp, err_m, gate = sim3_lm_check("loop", a, kw)
     n_valid = int(a[8].sum())
     record(sim3_opt, err_m, lambda: sim3_opt.optimize_sim3(*a, **kw),
            cuda_ms(lambda: sim3_opt.optimize_sim3_plain(*a, **kw), reps=3),
            f"N={n}, {n_valid} pairs, {rk.n_inliers} vs {rp.n_inliers} inliers, "
-           f"S12 max diff {err_m:.2e}",
+           f"S12 max diff {err_m:.2e} ({gate})",
            # the pairs read once, the packed result written; 15 iterations
            # over the valid pairs of the 4 residual rows in dual numbers
            # (~1300 ops), H and g (~280), both trial costs (~120)
@@ -1957,6 +1981,70 @@ def loop_rows(dev, record, args):
                              + n * n // 2 + cholesky_ops(n)
                              + K * (2 * SIM3_EXP + SIM3_COMPOSE + SIM3_LOG))
                   + K * (2 * SIM3_COMPOSE + SIM3_EXP)))
+
+
+def sim3_lm_check(label, a, kw):
+    """Kernel M's LM against the plain LM on its arguments ``a``, ``kw``.
+    Two comparisons steer the LM: the chi2 gate between its two phases
+    (which pairs the second phase optimizes) and each iteration's cost test
+    (accept the step, halve lambda; or reject it, quadruple lambda). A pair
+    whose chi2 lies at the gate, or a step whose cost change is below the
+    float32 rounding of the cost sums, may fall on either side in the
+    kernel's and the plain version's summation orders, and the two LMs then
+    take different paths along a flat valley of the cost (the flicker of
+    PERF.md section 7). So the kernel is held within 1e-4 (inlier counts
+    within 1) of the plain LM replaying the kernel's own decisions, its
+    first-phase inlier set and its accept decisions; the direct
+    difference, the decisions that differ and the pairs nearest the gate
+    are printed. Returns (kernel result, replayed plain result, its S12
+    difference, the note)."""
+    from orbslam2_tpu_torch.kernels import sim3_opt
+    from orbslam2_tpu_torch.ops import sim3_opt as sim3_ops
+
+    n = a[2].shape[0]
+    unpack = lambda t: sim3_opt.unpack(t.cpu().numpy(), n)  # noqa: E731
+    accepts = torch.zeros(sim3_ops.ITERS1 + sim3_ops.ITERS2, dtype=torch.uint8,
+                          device=a[2].device)
+    rk = unpack(sim3_opt.optimize_sim3(*a, accepts=accepts, **kw))
+    taken = []
+    rd = unpack(sim3_opt.optimize_sim3_plain(*a, trace=taken, **kw))
+    mid_k = unpack(sim3_opt.optimize_sim3(*a, iters2=0, **kw))
+    mid_p = unpack(sim3_opt.optimize_sim3_plain(*a, iters2=0, **kw))
+    kernel_taken = [bool(v) for v in accepts.tolist()]
+    rc = unpack(sim3_opt.optimize_sim3_plain(
+        *a, mid_inliers=torch.from_numpy(mid_k.inliers).to(a[2].device),
+        replay=kernel_taken, **kw))
+    flips = int((mid_k.inliers != mid_p.inliers).sum())
+    steps = [i for i, (x, y) in enumerate(zip(kernel_taken, taken)) if x != y]
+
+    def margins(S):
+        """each valid pair's worse edge chi2 at S"""
+        cam, _, p1c, p2c, u1, u2, s1, s2, valid = a
+        r = sim3_ops.residuals(cam, torch.from_numpy(S).to(p1c.device), p1c, p2c,
+                               u1, u2, 1.0 / torch.sqrt(s1.clamp_min(1e-9)),
+                               1.0 / torch.sqrt(s2.clamp_min(1e-9)))
+        worst = torch.maximum((r[:, :2] ** 2).sum(1), (r[:, 2:] ** 2).sum(1))
+        return torch.where(valid, worst, torch.full_like(worst, float("inf")))
+
+    ck, cp = margins(mid_k.S12), margins(mid_p.S12)
+    near = torch.argsort((cp - sim3_ops.TH2).abs())[:3].tolist()
+    err_direct = float(np.abs(rk.S12 - rd.S12).max())
+    err_mid = float(np.abs(mid_k.S12 - mid_p.S12).max())
+    err_m = float(np.abs(rk.S12 - rc.S12).max())
+    note = (f"first phase S12 diff {err_mid:.2e}, inliers {mid_k.n_inliers} vs "
+            f"{mid_p.n_inliers}, {flips} flipped at the gate; LM accept decisions "
+            f"differ at iterations {steps} (kernel "
+            f"{''.join(str(int(x)) for x in kernel_taken)}); direct S12 diff "
+            f"{err_direct:.2e}, inliers {rk.n_inliers} vs {rd.n_inliers}; nearest "
+            f"the gate {sim3_ops.TH2}: "
+            + ", ".join(f"pair {i} chi2 {ck[i].item():.5f} / {cp[i].item():.5f}"
+                        for i in near))
+    print(f"kernel sim3_opt ({label}): S12 vs the plain LM replaying the kernel's "
+          f"decisions {err_m:.2e}; {note}")
+    check(err_m <= 1e-4 and abs(rk.n_inliers - rc.n_inliers) <= 1,
+          f"kernel M's LM ({label}): S12 {err_m}, inliers {rk.n_inliers} vs "
+          f"{rc.n_inliers}")
+    return rk, rc, err_m, note
 
 
 def pose_diff(Sa, Sb, valid):
@@ -2289,6 +2377,263 @@ def scale_path(dev):
                         cam=cam, closer_solve=closer._solve_chunked), fields
 
 
+# the async phase's bounds: tests/test_pipeline.py's (>= 28 of 30 frames in
+# the trajectory, scaled to 36; ATE < 0.08 m; >= 3 keyframes) and the async
+# circuit of tests/test_loop_e2e.py (a loop closes, finite poses, keyframe
+# ATE < 0.2 m, a wait while 3 keyframes queue)
+ASYNC_TRACKED = 34
+ASYNC_ATE = 0.08
+ASYNC_LOOP_ATE = 0.2
+ASYNC_RUNS = 3
+# kernel R''s operations a motion-model call: two orthonormalizations (40
+# each), the rigid inverse (18), two 4x4 products (112 each)
+POSE_CHAIN_OPS = 2 * 40 + 18 + 2 * 112
+
+
+def async_rgbd(dev, frames, poses, sync_fps):
+    """(a) phase 4's 36 RGB-D frames (640x480, 1000 features, 8 levels)
+    through AsyncSlamSystem (pipelined tracking, default depths), then
+    shutdown(), to tests/test_pipeline.py's bounds scaled to 36 frames.
+    Returns (counts, the captured chained-cascade calls with and without
+    the motion model)."""
+    from orbslam2_tpu_torch import kernels, tracking
+    from orbslam2_tpu_torch.pipeline import AsyncSlamSystem
+    from orbslam2_tpu_torch.utils import slices
+    from orbslam2_tpu_torch.utils.evaluation import ate_rmse
+
+    slam = AsyncSlamSystem(slices.config("rgbd"), device=dev)
+    kernels.reset_launches()
+    calls = []
+    with Capture(tracking, "track_frame_fused_chained", lambda a, k: a[3]) as motion, \
+            Capture(tracking, "track_frame_fused_chained", lambda a, k: not a[3]) as still:
+        t0 = time.perf_counter()
+        for i, frame in enumerate(frames):
+            t1 = time.perf_counter()
+            slices.track(slam, "rgbd", frame, i / 30.0)
+            calls.append(time.perf_counter() - t1)
+        slam.shutdown()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    traj = slam.tracker.trajectory
+    est = np.array([np.linalg.inv(T)[:3, 3] for _, _, T in traj])
+    gt = np.array([np.linalg.inv(poses[f])[:3, 3] for f, _, _ in traj])
+    ate = ate_rmse(est, gt, with_scale=False)
+    n_kf = len(slam.map.valid_keyframes())
+    print(f"async rgbd (AsyncSlamSystem, pipelined, depths "
+          f"{slam.cfg.runtime.pipeline_depth}/{slam.cfg.runtime.pipeline_depth_max}, "
+          f"{len(frames)} frames of 640x480): {len(traj)} in the trajectory, "
+          f"{n_kf} keyframes, ATE {ate:.5f} m; {len(frames) / wall:.2f} frames/s "
+          f"from the first call to shutdown's end ({1e3 * statistics.median(calls):.2f} "
+          f"ms the median call) against the synchronous path's {sync_fps:.2f} "
+          f"(phase 4); launches {counts}")
+    check(len(traj) >= ASYNC_TRACKED, f"async rgbd: {len(traj)} frames tracked")
+    check(ate < ASYNC_ATE, f"async rgbd: ATE {ate} >= {ASYNC_ATE}")
+    check(n_kf >= 3, f"async rgbd: only {n_kf} keyframes")
+    check(motion.args is not None and still.args is not None,
+          "async rgbd: the chained cascade ran without both prediction kinds")
+    return counts, (motion, still)
+
+
+def async_circuit(dev, run):
+    """(c) the loop circuit (utils/slices.circuit, 240 frames at 320x240)
+    through AsyncSlamSystem with background global BA, fed with
+    tests/test_loop_e2e.py's back-pressure, to its bounds. Returns (counts,
+    the "async" line's fields of the run, kernel M's LM arguments)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import sim3_opt
+    from orbslam2_tpu_torch.pipeline import AsyncSlamSystem
+    from orbslam2_tpu_torch.utils import slices
+
+    frames, poses = slices.circuit()
+    slam = AsyncSlamSystem(slices.config("circuit"), device=dev)
+    closer = slam.loop_closer
+    busy, gba_runs = [], []  # (start, end) of closures and GBA runs
+    correct, gba_task = closer._compute_and_correct, closer._gba_task
+
+    def timed_correct(*a, **k):
+        t = time.perf_counter()
+        try:
+            return correct(*a, **k)
+        finally:
+            busy.append((t, time.perf_counter()))
+
+    def timed_gba():
+        t = time.perf_counter()
+        gba_task()
+        busy.append((t, time.perf_counter()))
+        gba_runs.append(dict(ms=1e3 * (time.perf_counter() - t),
+                             superseded=closer.gba_abort.is_set()))
+
+    closer._compute_and_correct, closer._gba_task = timed_correct, timed_gba
+    calls, depth_max, first_close = [], 0, None
+    kernels.reset_launches()
+    with Capture(sim3_opt, "optimize_sim3") as m_opt:
+        for i, (img, depth) in enumerate(frames):
+            t1 = time.perf_counter()
+            slam.track_rgbd(img, depth, i / 30.0)
+            calls.append((t1, time.perf_counter()))
+            depth_max = max(depth_max, slam._kf_queue.qsize())
+            if first_close is None and closer.loops_closed:
+                first_close = i
+            waited = 0.0
+            while slam._kf_queue.qsize() >= 3 and waited < 5.0:
+                time.sleep(0.01)
+                waited += 0.01
+        slam.shutdown()
+    counts = kernels.launch_counts()
+    ate = slices.keyframe_ate(slam, poses)
+    kfs = slam.map.valid_keyframes()
+    during = [e - s for s, e in calls if any(b0 < e and b1 > s for b0, b1 in busy)]
+    fields = dict(run=run, frame=first_close, loops=closer.loops_closed,
+                  keyframe_ate=ate, keyframes=len(kfs), gba=gba_runs,
+                  kf_queue_max=depth_max, fuse_ba_skips=slam.local_mapper.skipped,
+                  track_ms_max_during_closure_or_gba=1e3 * max(during, default=0.0),
+                  track_ms_max=1e3 * max(e - s for s, e in calls),
+                  track_ms_median=1e3 * statistics.median(e - s for s, e in calls))
+    print("async " + json.dumps(fields))
+    check(closer.loops_closed >= 1, f"async circuit {run}: no loop closed")
+    check(np.isfinite(slam.map.kf_pose[kfs]).all(), f"async circuit {run}: poses")
+    check(ate is not None and ate < ASYNC_LOOP_ATE,
+          f"async circuit {run}: keyframe ATE {ate} >= {ASYNC_LOOP_ATE}")
+    return counts, fields, m_opt.args
+
+
+def pipelined_frame_kernels(dev, frames):
+    """(b) A Tracker driven by track_pipelined on the RGB-D frames with no
+    mapping; one call whose frame makes no keyframe and whose local map is
+    the cached one is profiled: its device work must be only kernels I, A,
+    J, B, L, R', O, C, Q, D, R, the feature buffer's fill, memsets and the
+    uploads, with exactly one device-to-host copy (into pinned memory), and
+    no stream or device synchronize beyond those of a profile of no work
+    (the profiler's own and the one after the call)."""
+    from orbslam2_tpu_torch.kernels import (cascade_pack, claim_resolve, describe,
+                                            fast_score, hamming, orb_select,
+                                            pose_chain, pose_lm, project_gate,
+                                            pyramid, rgbd_depth)
+    from orbslam2_tpu_torch.map.state import MapState
+    from orbslam2_tpu_torch.tracking import Tracker
+    from orbslam2_tpu_torch.utils import slices
+
+    cfg = slices.config("rgbd")
+    tr = Tracker(cfg, MapState.allocate(cfg, device=dev), device=dev)
+    allowed = [m.FUNCTION for m in (pyramid, fast_score, orb_select, describe,
+                                    rgbd_depth, pose_chain, project_gate, hamming,
+                                    claim_resolve, pose_lm, cascade_pack)] \
+        + ["FillFunctor", "Memset", "Memcpy HtoD"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+
+    def synchronizations(ev):
+        return {e.key: e.count for e in ev if "Synchronize" in e.key}
+
+    base = synchronizations(profiled(lambda: None))
+    for i, (img, depth) in enumerate(frames):
+        n_kf, key = len(tr.pending_keyframes), tr._local_cache_key
+        if i < 4:
+            tr.track_pipelined(img, i / 30.0, depth_map=depth)
+            continue
+        ev = profiled(lambda: tr.track_pipelined(img, i / 30.0, depth_map=depth))
+        if len(tr.pending_keyframes) == n_kf and tr._local_cache_key == key:
+            break
+    else:
+        check(False, "pipelined frame: every call made a keyframe or a new local map")
+    dev_counts = {e.key: e.count for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+    runtime = {e.key: e.count for e in ev if e.key.startswith("cuda")}
+    d2h = {k: n for k, n in dev_counts.items() if "DtoH" in k}
+    other = sorted(k for k in dev_counts
+                   if "DtoH" not in k and not any(a in k for a in allowed))
+    syncs = synchronizations(ev)
+    print(f"pipelined frame {i} on the card, all its device work: "
+          f"{sum(dev_counts.values())} events, " + ", ".join(sorted(dev_counts))
+          + f"; synchronizations {syncs} (a profile of no work: {base}); "
+          f"runtime calls {runtime}")
+    check(not other, f"the pipelined frame launched other device work: {other}")
+    check(sum(d2h.values()) == 1 and all("Pinned" in k for k in d2h),
+          f"the pipelined frame made device-to-host copies {d2h}, not one into "
+          f"pinned memory")
+    check(runtime.get("cudaLaunchKernel", 0) > 0,
+          "the profile recorded no CUDA runtime calls")
+    for kind in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+        check(syncs.get(kind, 0) == base.get(kind, 0),
+              f"the pipelined frame synchronized the stream or the device: "
+              f"{syncs} against {base}")
+    return i
+
+
+def pose_chain_rows(dev, record, captures):
+    """(d) Kernel R' against its plain version on the links recorded in
+    (a), within 1e-6 (both kinds of prediction and the next link); the
+    chained cascade against the plain chained cascade on the recorded
+    calls, as phase 3 holds the cascade (pose 1e-4, counts within 1%,
+    codes >= 99% equal, the share printed) and the next link within 1e-4.
+    R''s row."""
+    from orbslam2_tpu_torch import tracking
+    from orbslam2_tpu_torch.kernels import pose_chain
+
+    errs = []
+    for cap in captures:
+        (a, kw), (packed, _) = cap.args, cap.result
+        links = ((a[1], a[2], a[3]), (packed[:16].view(4, 4), None, False))
+        for la in links:
+            errs.append((pose_chain.pose_chain(*la)
+                         - pose_chain.pose_chain_plain(*la)).abs().max().item())
+        pk, Tk = tracking.track_frame_fused_chained(*a, **kw)
+        pp, Tp = tracking.track_frame_fused_chained(*a, plain=True, **kw)
+        err = (pk[:16] - pp[:16]).abs().max().item()
+        counts_ok = all(abs(pk[i].item() - pp[i].item()) <= max(0.01 * pp[i].item(), 1)
+                        for i in range(16, 20))
+        codes = (pk[20:] == pp[20:]).float().mean().item()
+        err_t = (Tk - Tp).abs().max().item()
+        print(f"chained cascade (motion model {a[3]}): pose max diff {err:.2e}, "
+              f"counts {[int(v) for v in pk[16:20].tolist()]} vs "
+              f"{[int(v) for v in pp[16:20].tolist()]}, codes equal {codes:.5f}, "
+              f"next link {err_t:.2e}")
+        check(err <= 1e-4 and counts_ok and codes >= 0.99 and err_t <= 1e-4,
+              f"chained cascade (motion {a[3]}): pose {err}, counts "
+              f"{pk[16:20].tolist()} vs {pp[16:20].tolist()}, codes {codes}, "
+              f"link {err_t}")
+    err_r = max(errs)
+    check(err_r <= 1e-6, f"kernel R' differs from its plain version by {err_r}")
+    a = captures[0].args[0]
+    la = (a[1], a[2], True)
+    record(pose_chain, err_r, lambda: pose_chain.pose_chain(*la),
+           cuda_ms(lambda: pose_chain.pose_chain_plain(*la)),
+           f"the links of the async RGB-D run: prediction with and without the "
+           f"motion model and the next link, max diff {err_r:.2e}",
+           # two links read, the prediction written
+           n_bytes=3 * 64, n_ops=POSE_CHAIN_OPS)
+
+
+def async_path(dev, record, frames, poses, sync_fps):
+    """Phase 9: the asynchronous system. (a) the RGB-D frames and (c) the
+    loop circuit three times through AsyncSlamSystem, their launch counts
+    set to 0 before each run and read after its shutdown() joined the
+    workers; (b) one pipelined frame by profiler; (d) kernel R' and the
+    chained cascade against their plain versions, and kernel M's LM on each
+    circuit run's arguments. Returns the path's summed counts."""
+    counts, captures = async_rgbd(dev, frames, poses, sync_fps)
+    total = defaultdict(int, counts)
+    m_args = []
+    for run in range(ASYNC_RUNS):
+        c, _, m = async_circuit(dev, run)
+        m_args.append(m)
+        for k, v in c.items():
+            total[k] += v
+    pipelined_frame_kernels(dev, frames)
+    pose_chain_rows(dev, record, captures)
+    for run, m in enumerate(m_args):
+        if m is not None:
+            sim3_lm_check(f"async circuit {run}", *m)
+    return dict(total)
+
+
 def scale_rows(dev, record, args, fields):
     """Kernel P' against its plain version on the reference's two
     2000-vertex graphs, on a 385-keyframe ring against kernel P forced
@@ -2487,6 +2832,7 @@ def scale_rows(dev, record, args, fields):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
@@ -2753,11 +3099,15 @@ def main():
 
     # ---- phase 8: loop closing at map scale ----------------------------------
     path_counts["scale"], scale_args, scale_fields = scale_path(dev)
+
+    # ---- phase 9: the asynchronous system ------------------------------------
+    path_counts["async"] = async_path(dev, record, frames, poses,
+                                      len(times) / sum(times))
     for path, names in PATHS.items():
         for name in names:
             check(path_counts[path][name] > 0,
                   f"kernel {name} never launched on the {path} path")
-    for path in ("loop", "scale"):
+    for path in ("loop", "scale", "async"):
         launched = {k for k, v in path_counts[path].items() if v > 0}
         check(launched == set(PATHS[path]),
               f"the {path} path launched {sorted(launched ^ set(PATHS[path]))} "
@@ -2782,6 +3132,8 @@ def main():
     for row in rows:
         row["launches"] = total[row["name"]]
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start, the "
+          f"kernels' build included")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ repository unchanged). The tree mirrors the reference one-to-one, so
 
   system.py              SlamSystem facade (synchronous RGB-D, stereo and
                          monocular paths)
+  pipeline.py            AsyncSlamSystem: pipelined tracking, the mapping
+                         and loop-closing workers, background global BA
+  warmup.py              kernel build and a scratch frame before tracking
   tracking.py            Tracker: extraction -> fused tracking cascade
   local_mapping.py       LocalMapper: triangulation, fuse, local BA
   loop_closing.py        LoopCloser: detection, Sim3, correction, essential

@@ -3,7 +3,8 @@
 One module per kernel, each holding the wrapper, the plain PyTorch version
 of the same function, ``FUNCTION``, the name of the ``__global__`` function
 it launches, and ``launches``, a plain integer the wrapper adds one to each
-time it launches the CUDA kernel:
+time it launches the CUDA kernel (``build.count_launch``, under a lock: the
+asynchronous system launches from several threads):
 
   fast_score      A  FAST score + border + 3x3 NMS   (ops/orb.py detect_level)
   describe        B  IC angle + steered BRIEF         (ops/orb.py)
@@ -34,31 +35,35 @@ time it launches the CUDA kernel:
   pose_graph      P  essential graph, dense LM        (ops/pose_graph.py, loop_closing.py)
   pose_graph_cg   P' essential graph, CG, K > 384     (ops/pose_graph.py, loop_closing.py)
   ba_solve_blocked F' blocked multi-block Cholesky     (ops/ba.py past 6K = 384, kernel P)
+  pose_chain      R' pipelined pose chain: prediction, link (tracking.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
 """
 
 from . import (ba_accept, ba_linearize, ba_solve, ba_solve_blocked,
-               ba_update_cost, bow_words, cascade_pack, claim_resolve,
+               ba_update_cost, bow_words, build, cascade_pack, claim_resolve,
                describe, fast_score, fuse_match, hamming, match_rot,
-               orb_select, pnp_ransac, point_attrs, pose_graph, pose_graph_cg,
-               pose_lm, project_gate, pyramid, rgbd_depth, sim3_opt,
-               sim3_ransac, sim3_search, stereo_match, stereo_sad, triangulate,
-               two_view)
+               orb_select, pnp_ransac, point_attrs, pose_chain, pose_graph,
+               pose_graph_cg, pose_lm, project_gate, pyramid, rgbd_depth,
+               sim3_opt, sim3_ransac, sim3_search, stereo_match, stereo_sad,
+               triangulate, two_view)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
            point_attrs, project_gate, claim_resolve, cascade_pack,
            triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
            two_view, bow_words, pnp_ransac, sim3_ransac, sim3_opt,
-           sim3_search, pose_graph, ba_solve_blocked, pose_graph_cg)
+           sim3_search, pose_graph, ba_solve_blocked, pose_graph_cg,
+           pose_chain)
 
 
 def reset_launches():
-    for mod in KERNELS:
-        mod.launches = 0
+    with build.launch_lock:
+        for mod in KERNELS:
+            mod.launches = 0
 
 
 def launch_counts() -> dict:
-    return {mod.NAME: mod.launches for mod in KERNELS}
+    with build.launch_lock:
+        return {mod.NAME: mod.launches for mod in KERNELS}

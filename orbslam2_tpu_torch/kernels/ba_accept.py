@@ -34,7 +34,6 @@ def ba_accept_plain(cost_n, poses_n, points_n, cost, lam, poses, points):
 def ba_accept(cost_n, poses_n, points_n, cost, lam, poses, points):
     """Kernel H on CUDA tensors, the plain version on CPU tensors; updates
     cost, lam, poses and points in place."""
-    global launches
     if cost.device.type == "cpu":
         return ba_accept_plain(cost_n, poses_n, points_n, cost, lam, poses, points)
     dev = cost.device
@@ -53,4 +52,4 @@ def ba_accept(cost_n, poses_n, points_n, cost, lam, poses, points):
         cost.data_ptr(), lam.data_ptr(), poses.data_ptr(), points.data_ptr(),
         K, M, build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)

@@ -184,7 +184,6 @@ def ba_linearize(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
                  obs_sigma2, obs_mask, lam, use_huber: bool) -> Linearized:
     """Kernel E on CUDA tensors, the plain version on CPU tensors. ``lam``
     is a (1,) tensor on the device, read by the kernel."""
-    global launches
     if points.device.type == "cpu":
         return ba_linearize_plain(cam, poses, points, point_valid, obs_kf,
                                   obs_uvr, obs_sigma2, obs_mask, lam, use_huber)
@@ -212,5 +211,5 @@ def ba_linearize(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
         cam.cy, cam.bf, int(use_huber), *(t.data_ptr() for t in out),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

@@ -67,7 +67,6 @@ def ba_solve_plain(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Te
 def ba_solve(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel F on CUDA tensors (kernel F' past K = 64), the plain version
     on CPU tensors."""
-    global launches
     if S.device.type == "cpu":
         return ba_solve_plain(S, b_S, opt_mask, lam, poses)
     dev = S.device
@@ -92,5 +91,5 @@ def ba_solve(S, b_S, opt_mask, lam, poses) -> Tuple[torch.Tensor, torch.Tensor]:
         poses.data_ptr(), K, work.data_ptr(),
         dc.data_ptr(), poses_n.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return dc, poses_n

@@ -82,7 +82,6 @@ def ba_solve_blocked_plain(S, b_S, opt_mask, lam, poses
 def ba_solve_blocked(S, b_S, opt_mask, lam, poses
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel F' on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if S.device.type == "cpu":
         return ba_solve_blocked_plain(S, b_S, opt_mask, lam, poses)
     dev = S.device
@@ -106,7 +105,7 @@ def ba_solve_blocked(S, b_S, opt_mask, lam, poses
         poses.data_ptr(), K, work.data_ptr(), x.data_ptr(), failed.data_ptr(),
         dc.data_ptr(), poses_n.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return dc, poses_n
 
 
@@ -116,7 +115,6 @@ def cholesky_solve_blocked(A: torch.Tensor, b: torch.Tensor
     CUDA tensors (A and b are copied first), the plain version on CPU
     tensors. For tests and timing; on the loop path F' runs inside the BA
     solve and kernel P."""
-    global launches
     if A.device.type == "cpu":
         return solve_blocked_plain(A, b)
     n = A.shape[0]
@@ -129,5 +127,5 @@ def cholesky_solve_blocked(A: torch.Tensor, b: torch.Tensor
         L.data_ptr(), n, x.data_ptr(), failed.data_ptr(),
         build.stream_handle(A.device))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return x, failed[0] != 0

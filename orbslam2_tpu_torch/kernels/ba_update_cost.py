@@ -65,7 +65,6 @@ def ba_update_cost(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel G on CUDA tensors, the plain version on CPU tensors. Without
     a step the returned points are ``points`` itself."""
-    global launches
     if points.device.type == "cpu":
         return ba_update_cost_plain(cam, poses, points, point_valid, obs_kf,
                                     obs_uvr, obs_sigma2, obs_valid, obs_mask,
@@ -103,5 +102,5 @@ def ba_update_cost(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
         points_n.data_ptr(), cost.data_ptr(), inlier.data_ptr(),
         scratch.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return points_n, cost, inlier

@@ -13,6 +13,7 @@ vector within float32 rounding of its sum.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -28,16 +29,18 @@ launches = 0
 
 _ROWS = 256  # descriptors a chunk of the plain version's distance matrix
 _unpacked = None  # (vocab, its float bits (W, 256), their row sums)
+_unpacked_lock = threading.Lock()
 
 
 def _vocab_bits(vocab: torch.Tensor):
     """The float {0,1} bits of ``vocab`` and their row sums, kept for the
     last vocabulary seen (a database reuses one for every call)."""
     global _unpacked
-    if _unpacked is None or _unpacked[0] is not vocab:
-        vb = matching.unpack_bits(vocab).float()
-        _unpacked = (vocab, vb, vb.sum(1))
-    return _unpacked[1], _unpacked[2]
+    with _unpacked_lock:
+        if _unpacked is None or _unpacked[0] is not vocab:
+            vb = matching.unpack_bits(vocab).float()
+            _unpacked = (vocab, vb, vb.sum(1))
+        return _unpacked[1], _unpacked[2]
 
 
 def bow_words_plain(desc, valid, vocab, idf=None
@@ -69,7 +72,6 @@ def bow_words(desc, valid, vocab, idf: Optional[torch.Tensor] = None
     (N,) int32, -1 outside ``valid``; the L1-normalized vector (W,)
     float32) of packed (N, 32) descriptors over the packed (W, 32)
     vocabulary, weighted by ``idf`` (W,) where given."""
-    global launches
     if desc.device.type == "cpu":
         return bow_words_plain(desc, valid, vocab, idf)
     dev = desc.device
@@ -93,5 +95,5 @@ def bow_words(desc, valid, vocab, idf: Optional[torch.Tensor] = None
         key.data_ptr(), words.data_ptr(), vec.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return words, vec

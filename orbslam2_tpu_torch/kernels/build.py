@@ -26,7 +26,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -80,17 +82,23 @@ _SIGNATURES = {
     "osl_pnp_ransac": [_P] * 4 + [_I, _P, _I] + [_F] * 4 + [_I] + [_P] * 6,
     "osl_sim3_ransac": [_P] * 5 + [_I, _P, _I] + [_F] * 4 + [_I, _F, _I]
     + [_P] * 5,
-    "osl_sim3_opt": [_P] * 8 + [_I] + [_F] * 4 + [_I, _F, _I, _I] + [_P] * 5,
+    "osl_sim3_opt": [_P] * 8 + [_I] + [_F] * 4 + [_I, _F, _I, _I] + [_P] * 6,
     "osl_sim3_search": [_P] * 6 + [_I] + [_P] * 6 + [_I, _P] + [_F] * 4
     + [_I, _I, _F, _P, _I] + [_P] * 5,
     "osl_cholesky_solve_blocked": [_P, _I, _P, _P, _P],
     "osl_ba_solve_blocked": [_P] * 5 + [_I] + [_P] * 6,
     "osl_pose_graph": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "osl_pose_graph_cg": [_P] * 10 + [_I] * 5 + [_P] * 4,
+    "osl_pose_chain": [_P, _P, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0
+# the asynchronous system calls the wrappers from the tracking thread and
+# the mapping, loop-closing and global-BA workers at once: the library is
+# built and loaded under one lock, and every launch count moves under another
+_lib_lock = threading.Lock()
+launch_lock = threading.Lock()
 
 
 def _sources():
@@ -157,18 +165,28 @@ def build(verbose: bool = False) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.osl_error_string.argtypes = [ctypes.c_int]
-        lib.osl_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.osl_error_string.argtypes = [ctypes.c_int]
+            lib.osl_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def count_launch(module_name: str):
+    """Add one to the ``launches`` count of the wrapper module
+    ``module_name``: each wrapper calls it once where it launches its
+    kernel, and nowhere else."""
+    mod = sys.modules[module_name]
+    with launch_lock:
+        mod.launches += 1
 
 
 def check(err: int, name: str):

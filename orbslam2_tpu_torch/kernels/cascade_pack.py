@@ -56,7 +56,6 @@ def cascade_pack_plain(T2, n2, inl2, kp2, T3, n3, inl3, kp3, n_motion, frustum,
 def cascade_pack(T2, n2, inl2, kp2, T3, n3, inl3, kp3, n_motion, frustum,
                  kp_valid, kp_depth, th_depth: float) -> torch.Tensor:
     """Kernel R on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if T2.device.type == "cpu":
         return cascade_pack_plain(T2, n2, inl2, kp2, T3, n3, inl3, kp3, n_motion,
                                   frustum, kp_valid, kp_depth, th_depth)
@@ -82,5 +81,5 @@ def cascade_pack(T2, n2, inl2, kp2, T3, n3, inl3, kp3, n_motion, frustum,
         kp_depth.data_ptr(), N, float(th_depth), packed.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return packed

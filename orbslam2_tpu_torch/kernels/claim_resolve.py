@@ -82,7 +82,6 @@ def claim_resolve(best_idx, best, second, second_idx, row_valid, kp_xy,
     """Kernel Q on CUDA tensors, the plain version on CPU tensors. With a
     ``gate`` (count, threshold) it runs only while the device count is below
     the threshold; otherwise the outputs are left unwritten."""
-    global launches
     if best.device.type == "cpu":
         return claim_resolve_plain(best_idx, best, second, second_idx, row_valid,
                                    kp_xy, kp_octave, kp_ur, scale_factor,
@@ -110,5 +109,5 @@ def claim_resolve(best_idx, best, second, second_idx, row_valid, kp_xy,
         float(nn_ratio), gate_n, gate_min, keys.data_ptr(), ok.data_ptr(),
         *(t.data_ptr() for t in out), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

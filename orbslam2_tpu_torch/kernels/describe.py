@@ -12,6 +12,7 @@ wherever the rotated pattern offsets round the same.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,13 +51,15 @@ def _pattern_xy() -> np.ndarray:
 
 
 _pattern_dev = {}
+_pattern_lock = threading.Lock()
 
 
 def _pattern_on(device) -> torch.Tensor:
     key = str(device)
-    if key not in _pattern_dev:
-        _pattern_dev[key] = torch.from_numpy(_pattern_xy()).to(device)
-    return _pattern_dev[key]
+    with _pattern_lock:
+        if key not in _pattern_dev:
+            _pattern_dev[key] = torch.from_numpy(_pattern_xy()).to(device)
+        return _pattern_dev[key]
 
 
 def orb_describe_plain(img: torch.Tensor, blurred: torch.Tensor,
@@ -100,7 +103,6 @@ def orb_describe(img: torch.Tensor, blurred: torch.Tensor, xy: torch.Tensor,
     """Kernel B on CUDA tensors, the plain version on CPU tensors. With
     ``out`` = (angle (n,) f32, desc (n, 32) u8), views of the frame's
     buffers, the results are written there and returned."""
-    global launches
     if img.device.type == "cpu":
         angle, desc = orb_describe_plain(img, blurred, xy, upright)
         if out is None:
@@ -130,5 +132,5 @@ def orb_describe(img: torch.Tensor, blurred: torch.Tensor, xy: torch.Tensor,
         _pattern_on(img.device).data_ptr(), H, W, int(bool(upright)),
         angle.data_ptr(), desc.data_ptr(), build.stream_handle(img.device))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return angle, desc

@@ -68,7 +68,6 @@ def fast_score_nms_plain(img: torch.Tensor, border: int) -> Tuple[torch.Tensor, 
 
 def fast_score_nms(img: torch.Tensor, border: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
-    global launches
     if img.device.type == "cpu":
         return fast_score_nms_plain(img, border)
     if not img.is_cuda or img.dtype != torch.float32 or img.dim() != 2:
@@ -82,5 +81,5 @@ def fast_score_nms(img: torch.Tensor, border: int) -> Tuple[torch.Tensor, torch.
         img.data_ptr(), s_raw.data_ptr(), s_nms.data_ptr(), H, W, int(border),
         build.stream_handle(img.device))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return s_raw, s_nms

@@ -66,7 +66,6 @@ def fuse_match(mp_pos, mp_desc, mp_valid, Tcw, kp_xy, kp_desc, kp_octave,
                kp_valid, cam, scale_factor: float, radius_mult: float
                ) -> matching.MatchResult:
     """Kernel T on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if mp_pos.device.type == "cpu":
         return fuse_match_plain(mp_pos, mp_desc, mp_valid, Tcw, kp_xy, kp_desc,
                                 kp_octave, kp_valid, cam, scale_factor,
@@ -97,5 +96,5 @@ def fuse_match(mp_pos, mp_desc, mp_valid, Tcw, kp_xy, kp_desc, kp_octave,
         matching.TH_LOW, idx.data_ptr(), dist.data_ptr(), valid.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return matching.MatchResult(idx=idx, dist=dist, valid=valid)

@@ -77,7 +77,6 @@ def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
     ``gate`` (count, threshold) it runs only while the device count is below
     the threshold; ``octave_window`` (lo, hi) or None as the plain
     version."""
-    global launches
     if mp_desc.device.type == "cpu":
         return hamming_top2_gated_plain(mp_desc, proj, r_px, pred_level,
                                         ur_pred, row_valid, kp_desc, kp_xy,
@@ -111,5 +110,5 @@ def hamming_top2_gated(mp_desc, proj, r_px, pred_level, ur_pred, row_valid,
         int(oct_lo), int(oct_hi), gate_n, gate_min,
         *(o.data_ptr() for o in out), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return tuple(out)

@@ -55,7 +55,6 @@ def match_rot(desc_a, desc_b, valid_a, valid_b, angles_a, angles_b,
               check_rotation: bool = True) -> matching.MatchResult:
     """Kernel U on CUDA tensors, the plain version on CPU tensors. The
     angles are read only with ``check_rotation``."""
-    global launches
     if desc_a.device.type == "cpu":
         return match_rot_plain(desc_a, desc_b, valid_a, valid_b, angles_a,
                                angles_b, max_dist, nn_ratio, xy_a, xy_b, window,
@@ -94,5 +93,5 @@ def match_rot(desc_a, desc_b, valid_a, valid_b, angles_a, angles_b,
         rows[2].data_ptr(), col_key.data_ptr(), out.idx.data_ptr(),
         out.dist.data_ptr(), out.valid.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

@@ -123,7 +123,6 @@ def orb_select(S_raw: torch.Tensor, S: torch.Tensor, n_out: int, ini_th: float,
     valid); with ``out`` the last three are its views, written in place, and
     ``out.octave`` is filled with ``level``. Raises above ``MAX_KEYS`` keys
     or where ``n_out`` exceeds them."""
-    global launches
     H, W = S.shape
     if n_out > n_keys(H, W):
         raise ValueError(f"{NAME}: n_out={n_out} above the {n_keys(H, W)} "
@@ -164,5 +163,5 @@ def orb_select(S_raw: torch.Tensor, S: torch.Tensor, n_out: int, ini_th: float,
         None if out.octave is None else out.octave.data_ptr(),
         out.valid.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return xy_i, out.xy, out.response, out.valid

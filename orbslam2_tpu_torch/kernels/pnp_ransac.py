@@ -54,7 +54,6 @@ def pnp_ransac(cam: Camera, pts_w, obs_uv, sigma2, valid, samples,
     """Kernel Z on CUDA tensors, the plain version on CPU tensors: the
     samples' (I, 4) int32 hypotheses over the (N, 3) points, (N, 2) pixels,
     (N,) sigma^2 and validity; returns the packed result."""
-    global launches
     if pts_w.device.type == "cpu":
         return pnp_ransac_plain(cam, pts_w, obs_uv, sigma2, valid, samples,
                                 min_inliers)
@@ -79,5 +78,5 @@ def pnp_ransac(cam: Camera, pts_w, obs_uv, sigma2, valid, samples,
         int(min_inliers), hyp.data_ptr(), counts.data_ptr(), alpha.data_ptr(),
         w_best.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

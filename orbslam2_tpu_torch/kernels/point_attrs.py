@@ -92,7 +92,6 @@ def point_attributes(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
                      mp_ref_kf, scale_factor: float, n_levels_m1: float) -> torch.Tensor:
     """Kernel N on CUDA tensors (observation slots as int16, 1 <= O <=
     MAX_SLOTS), the plain version on CPU tensors."""
-    global launches
     if obs_kf.device.type == "cpu":
         return point_attributes_plain(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft,
                                       mp_pos, mp_ref_kf, scale_factor, n_levels_m1)
@@ -115,5 +114,5 @@ def point_attributes(kf_desc, kf_octave, kf_pose, obs_kf, obs_ft, mp_pos,
         mp_ref_kf.data_ptr(), P, O, float(scale_factor), float(n_levels_m1),
         out.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

@@ -53,7 +53,6 @@ def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
     """The plain version on CPU tensors; on CUDA tensors kernel P, or kernel
     P' where the solver is "cg" or, with "auto", K > DENSE_MAX_K (K counts
     every slot, dead ones included, as in the reference)."""
-    global launches
     if S_init.device.type == "cpu":
         return optimize_pose_graph_plain(S_init, fixed, valid, edge_i, edge_j,
                                          edge_Sij, edge_valid, iters, fix_scale,
@@ -87,6 +86,6 @@ def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
         order.data_ptr(), K, E, int(iters), int(fix_scale), ws.data_ptr(),
         iws.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return pose_graph.PoseGraphResult(poses=out[:8 * K].reshape(K, 8),
                                       cost=out[8 * K])

@@ -110,7 +110,7 @@ def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
     """Kernel P' on CUDA tensors, the plain CG version on CPU tensors.
     ``max_cg`` caps each CG solve below the reference's min(K, 600)
     iterations (to hold a truncated solve against the plain version)."""
-    global launches, last_cg_iterations, last_state
+    global last_cg_iterations, last_state
     if S_init.device.type == "cpu":
         return optimize_pose_graph_plain(S_init, fixed, valid, edge_i, edge_j,
                                          edge_Sij, edge_valid, iters, fix_scale,
@@ -142,7 +142,7 @@ def optimize_pose_graph(S_init, fixed, valid, edge_i, edge_j, edge_Sij,
         int(fix_scale), int(max_cg or 0), ws.data_ptr(), iws.data_ptr(),
         out.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     last_cg_iterations = iws[n_flags:]
     last_state = state_views(ws, K, E)
     return pose_graph.PoseGraphResult(poses=out[:8 * K].reshape(K, 8),

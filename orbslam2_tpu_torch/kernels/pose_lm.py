@@ -202,7 +202,6 @@ def pose_lm(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10,
     the threshold; ``out`` = ((4, 4) pose, () int32 count) receives the
     result, and may hold the gate's own count (the cascade's retry writes
     over the first pass)."""
-    global launches
     if pts_w.device.type == "cpu":
         return pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid,
                              rounds, iters, gate, out)
@@ -231,5 +230,5 @@ def pose_lm(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10,
         gate_n, gate_min, T_out.data_ptr(), inliers.data_ptr(), n_inl.data_ptr(),
         chi2.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return T_out, inliers, n_inl, chi2

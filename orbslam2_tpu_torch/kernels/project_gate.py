@@ -81,7 +81,6 @@ def project_gate(cam, Tcw, mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax,
     """Kernel O on CUDA tensors, the plain version on CPU tensors. With a
     ``gate`` (count, threshold) the pass runs only while the device count
     is below the threshold; otherwise the outputs are left unwritten."""
-    global launches
     if mp_pos.device.type == "cpu":
         return project_gate_plain(cam, Tcw, mp_pos, mp_valid, mp_normal, mp_dmin,
                                   mp_dmax, radius, scale_factor, n_levels, gate)
@@ -107,5 +106,5 @@ def project_gate(cam, Tcw, mp_pos, mp_valid, mp_normal, mp_dmin, mp_dmax,
         gate_n, gate_min, *(t.data_ptr() for t in out),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

@@ -17,6 +17,7 @@ are bit-exact.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -88,20 +89,22 @@ def _span(idx: np.ndarray, n_out: int, tile: int) -> int:
 
 
 _tables = {}
+_tables_lock = threading.Lock()
 
 
 def _tables_on(in_hw, out_hw, device):
     """Row and column taps on ``device`` and the staged spans, built once
-    per shape."""
+    per shape (by one thread)."""
     key = (in_hw, out_hw, str(device))
-    if key not in _tables:
-        (H, W), (oh, ow) = in_hw, out_hw
-        ry, wy = resize_taps(H, oh)
-        rx, wx = resize_taps(W, ow)
-        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-        _tables[key] = (on(ry), on(wy), on(rx), on(wx),
-                        _span(ry, oh, TILE_H), _span(rx, ow, TILE_W))
-    return _tables[key]
+    with _tables_lock:
+        if key not in _tables:
+            (H, W), (oh, ow) = in_hw, out_hw
+            ry, wy = resize_taps(H, oh)
+            rx, wx = resize_taps(W, ow)
+            on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+            _tables[key] = (on(ry), on(wy), on(rx), on(wx),
+                            _span(ry, oh, TILE_H), _span(rx, ow, TILE_W))
+        return _tables[key]
 
 
 def resize_plain(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -143,7 +146,6 @@ def pyramid_level(src: torch.Tensor, out_hw: Optional[Tuple[int, int]] = None,
                   sigma: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel I on a CUDA tensor, the plain version on a CPU tensor. With
     ``out_hw`` None the level is ``src`` and only the blur runs (level 0)."""
-    global launches
     if src.device.type == "cpu":
         return pyramid_level_plain(src, out_hw, sigma)
     if not src.is_cuda or src.dtype != torch.float32 or src.dim() != 2:
@@ -178,5 +180,5 @@ def pyramid_level(src: torch.Tensor, out_hw: Optional[Tuple[int, int]] = None,
                                     span_r, span_c, *taps, level.data_ptr(),
                                     blurred.data_ptr(), oh, ow, stream)
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return level, blurred

@@ -57,7 +57,6 @@ def rgbd_depth(depth_q: torch.Tensor, depth_scale: float, xy: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel L on CUDA tensors (depth as uint16), the plain version on CPU
     tensors."""
-    global launches
     if xy.device.type == "cpu":
         return rgbd_depth_plain(depth_q, depth_scale, xy, valid, cam, stride)
     dev = xy.device
@@ -79,5 +78,5 @@ def rgbd_depth(depth_q: torch.Tensor, depth_scale: float, xy: torch.Tensor,
         xy_u.data_ptr() if distort else None, ur.data_ptr(), depth.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return xy_u, ur, depth

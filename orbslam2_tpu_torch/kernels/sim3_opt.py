@@ -16,6 +16,8 @@ as one (9 + N,) float32 tensor; ``unpack`` reads it on the host.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -43,18 +45,26 @@ def unpack(packed: np.ndarray, n: int) -> sim3_opt.Sim3OptResult:
 
 
 def optimize_sim3_plain(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1,
-                        sigma2_2, valid, fix_scale: bool = False) -> torch.Tensor:
+                        sigma2_2, valid, fix_scale: bool = False,
+                        iters2: int = sim3_opt.ITERS2, **replay) -> torch.Tensor:
+    """``replay``: ``mid_inliers``, ``replay`` and ``trace`` of
+    ``ops.sim3_opt.optimize_sim3``."""
     return pack(sim3_opt.optimize_sim3(cam, S12_0, p1c, p2c, u1, u2, sigma2_1,
-                                       sigma2_2, valid, fix_scale))
+                                       sigma2_2, valid, fix_scale, iters2=iters2,
+                                       **replay))
 
 
 def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
-                  valid, fix_scale: bool = False) -> torch.Tensor:
-    """Kernel M's LM on CUDA tensors, the plain version on CPU tensors."""
-    global launches
+                  valid, fix_scale: bool = False, iters2: int = sim3_opt.ITERS2,
+                  accepts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel M's LM on CUDA tensors, the plain version on CPU tensors.
+    With ``iters2=0`` the result is the first phase's: its S12 and the chi2
+    gate's inlier set, which the second phase optimizes over. ``accepts``,
+    a (ITERS1 + iters2,) uint8 tensor on the device, receives the kernel's
+    accept decision of each LM iteration."""
     if p1c.device.type == "cpu":
         return optimize_sim3_plain(cam, S12_0, p1c, p2c, u1, u2, sigma2_1,
-                                   sigma2_2, valid, fix_scale)
+                                   sigma2_2, valid, fix_scale, iters2)
     dev = p1c.device
     N = p1c.shape[0]
     build.expect(NAME, dev, (
@@ -65,7 +75,9 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
         ("u2", u2, torch.float32, (N, 2)),
         ("sigma2_1", sigma2_1, torch.float32, (N,)),
         ("sigma2_2", sigma2_2, torch.float32, (N,)),
-        ("valid", valid, torch.bool, (N,))))
+        ("valid", valid, torch.bool, (N,)))
+        + ((("accepts", accepts, torch.uint8, (sim3_opt.ITERS1 + iters2,)),)
+           if accepts is not None else ()))
     f32 = dict(dtype=torch.float32, device=dev)
     inv1, inv2 = torch.empty(N, **f32), torch.empty(N, **f32)
     mask = torch.empty(N, dtype=torch.uint8, device=dev)
@@ -74,8 +86,9 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
         S12_0.data_ptr(), p1c.data_ptr(), p2c.data_ptr(), u1.data_ptr(),
         u2.data_ptr(), sigma2_1.data_ptr(), sigma2_2.data_ptr(), valid.data_ptr(),
         N, cam.fx, cam.fy, cam.cx, cam.cy, int(fix_scale), sim3_opt.TH2,
-        sim3_opt.ITERS1, sim3_opt.ITERS2, inv1.data_ptr(), inv2.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), build.stream_handle(dev))
+        sim3_opt.ITERS1, int(iters2), inv1.data_ptr(), inv2.data_ptr(),
+        mask.data_ptr(), out.data_ptr(),
+        None if accepts is None else accepts.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

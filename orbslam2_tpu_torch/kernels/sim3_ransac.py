@@ -59,7 +59,6 @@ def sim3_ransac(cam: Camera, pts1_c, pts2_c, sigma2_1, sigma2_2, valid, samples,
     """Kernel K on CUDA tensors, the plain version on CPU tensors: the (I, 3)
     int32 samples over the (N, 3) points of each camera, their (N,)
     sigma^2 and validity; returns the packed result."""
-    global launches
     if pts1_c.device.type == "cpu":
         return sim3_ransac_plain(cam, pts1_c, pts2_c, sigma2_1, sigma2_2, valid,
                                  samples, fix_scale, min_inliers)
@@ -85,5 +84,5 @@ def sim3_ransac(cam: Camera, pts1_c, pts2_c, sigma2_1, sigma2_2, valid, samples,
         int(min_inliers), hyps.data_ptr(), counts.data_ptr(), w_best.data_ptr(),
         out.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return out

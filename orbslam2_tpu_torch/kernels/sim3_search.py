@@ -43,7 +43,6 @@ def search_by_sim3(cam: Camera, S12, pos1, desc1, valid1, dmax1, xy1, oct1,
                    n_levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel M's search on CUDA tensors, the plain version on CPU tensors:
     (idx2 (N1,) int32, -1 where the directions disagree; mutual (N1,))."""
-    global launches
     if pos1.device.type == "cpu":
         return search_by_sim3_plain(cam, S12, pos1, desc1, valid1, dmax1, xy1,
                                     oct1, pos2, desc2, valid2, dmax2, xy2, oct2,
@@ -75,5 +74,5 @@ def search_by_sim3(cam: Camera, S12, pos1, desc1, valid1, dmax1, xy1, oct1,
         int(n_levels), idx12.data_ptr(), idx21.data_ptr(), idx2.data_ptr(),
         mutual.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return idx2, mutual

@@ -52,7 +52,6 @@ def stereo_match(l_xy, l_oct, l_desc, l_valid, r_xy, r_oct, r_desc, r_valid,
                  scale_factors, bf: float, min_depth: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel V on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if l_xy.device.type == "cpu":
         return stereo_match_plain(l_xy, l_oct, l_desc, l_valid, r_xy, r_oct,
                                   r_desc, r_valid, scale_factors, bf, min_depth)
@@ -78,5 +77,5 @@ def stereo_match(l_xy, l_oct, l_desc, l_valid, r_xy, r_oct, r_desc, r_valid,
         float(min_depth), ur.data_ptr(), depth.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return ur, depth

@@ -62,7 +62,6 @@ def stereo_sad_plain(left_img, right_img, xy_l, ur0, depth0, bf: float
 def stereo_sad(left_img, right_img, xy_l, ur0, depth0, bf: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel W on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if left_img.device.type == "cpu":
         return stereo_sad_plain(left_img, right_img, xy_l, ur0, depth0, bf)
     dev = left_img.device
@@ -81,5 +80,5 @@ def stereo_sad(left_img, right_img, xy_l, ur0, depth0, bf: float
         ur0.data_ptr(), depth0.data_ptr(), N, float(bf), ur.data_ptr(),
         depth.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return ur, depth

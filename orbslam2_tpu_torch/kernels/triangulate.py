@@ -166,7 +166,6 @@ def triangulate(desc1, xy1, oct1, avail1, depth1, ur1, T1,
                 K, baseline: float, bf: float, sf: float
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel S on CUDA tensors, the plain version on CPU tensors."""
-    global launches
     if xy2.device.type == "cpu":
         return triangulate_plain(desc1, xy1, oct1, avail1, depth1, ur1, T1,
                                  desc2, xy2, oct2, avail2, depth2, ur2, T2,
@@ -206,5 +205,5 @@ def triangulate(desc1, xy1, oct1, avail1, depth1, ur1, T1,
         col_key.data_ptr(), X.data_ptr(), good.data_ptr(), idx.data_ptr(),
         build.stream_handle(dev))
     build.check(err, NAME)
-    launches += 1
+    build.count_launch(__name__)
     return X, good, idx

@@ -131,9 +131,8 @@ def two_view(x1, x2, valid, K, samples) -> torch.Tensor:
     """Kernel X on CUDA tensors, the plain version on CPU tensors; returns
     the packed result. ``K`` (3, 3) may be a host array (the kernel takes
     fx, fy, cx, cy as arguments)."""
-    global launches
     if x1.device.type == "cpu":
         return two_view_plain(x1, x2, valid, K, samples)
     out = stages(x1, x2, valid, K, samples).out
-    launches += 1
+    build.count_launch(__name__)
     return out

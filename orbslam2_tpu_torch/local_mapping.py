@@ -8,6 +8,12 @@ neighbours (kernel S), the projection fuse over all 2N directions (kernel
 T), the point attributes (kernel N) and local BA (kernels E-H); the graph
 bookkeeping stays host-side on the single-writer MapState, unchanged from
 the reference.
+
+``keyframe_phases`` splits one keyframe's round into the phases the
+asynchronous system's mapping worker runs, each taking the map lock for
+its host reads and writes only. Under a backlog of keyframes the fuse and
+local BA are skipped (at most ``max_skip_streak`` keyframes in a row), and
+a keyframe that arrives while local BA runs interrupts it between LM chunks.
 """
 
 from __future__ import annotations
@@ -40,24 +46,80 @@ class LocalMapper:
         # band) changed this keyframe round; ONE batched refresh runs at the
         # end of the round instead of one per phase, as in the reference
         self._attrs_pending: set = set()
+        # the system's hooks: the keyframe database's precompute_async (the
+        # BoW vector launched at the start of the round), "another keyframe
+        # waits" (interrupts local BA between LM chunks, InterruptBA) and
+        # "two or more wait" (skips fuse and BA, at most max_skip_streak
+        # keyframes in a row, so a permanent backlog still fuses)
+        self.bow_precompute = lambda kf: None
+        self.interrupt = lambda: False
+        self.backlog = lambda: False
+        self.max_skip_streak = 2
+        self._skip_streak = 0
+        self._skip_now = False
+        self.skipped = 0  # keyframes whose fuse and BA the backlog skipped
+        # moving average of a keyframe round's seconds, kept by the worker
+        # that drives the rounds; the tracker paces its keyframes by it
+        self.kf_proc_ema_s = 0.0
+
+    def note_kf_processed(self, seconds: float, alpha: float = 0.3):
+        if self.kf_proc_ema_s == 0.0:
+            self.kf_proc_ema_s = seconds
+        else:
+            self.kf_proc_ema_s += alpha * (seconds - self.kf_proc_ema_s)
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, kf: int):
+    def process_keyframe(self, kf: int, run_ba: bool = True):
+        for phase in self.keyframe_phases(kf, run_ba):
+            phase()
+
+    def keyframe_phases(self, kf: int, run_ba: bool = True):
         """The ProcessNewKeyFrame pipeline for one keyframe, in the
-        reference's order. Each phase takes the map lock for its host
-        reads and writes (create/fuse/BA only around gather and commit)."""
+        reference's order, as phases the worker runs one by one. The
+        host-only phases hold the map lock throughout; create, fuse and BA
+        take it around their gather and commit only, so the tracker's
+        keyframe insertion waits for one phase at most, never for the
+        device."""
         lock = self.map.lock
-        with lock:
-            self.map.recycle_free_slots()
-            self._refresh_tracked_points(kf)
-            self._cull_map_points(kf)
-        self._create_new_points(kf)
-        self._fuse_neighbors(kf)
-        self.local_bundle_adjustment(kf)
-        with lock:
+
+        def locked(fn):
+            def run():
+                with lock:
+                    fn()
+            return run
+
+        def finish():
             self._flush_attrs_pending()
             self._cull_keyframes(kf)
             self.map.version += 1
+
+        def fuse_phase():
+            # one skip decision per keyframe, the streak bounded
+            self._skip_now = (self.backlog()
+                              and self._skip_streak < self.max_skip_streak)
+            if self._skip_now:
+                self._skip_streak += 1
+                self.skipped += 1
+                return
+            self._skip_streak = 0
+            self._fuse_neighbors(kf)
+
+        def ba_phase():
+            if not self._skip_now:
+                self.local_bundle_adjustment(kf)
+
+        phases = [
+            lambda: self.bow_precompute(kf),
+            locked(self.map.recycle_free_slots),
+            locked(lambda: self._refresh_tracked_points(kf)),
+            locked(lambda: self._cull_map_points(kf)),
+            lambda: self._create_new_points(kf),
+            fuse_phase,
+        ]
+        if run_ba:
+            phases.append(ba_phase)
+        phases.append(locked(finish))
+        return phases
 
     # ------------------------------------------------------------------
     # ProcessNewKeyFrame (†LocalMapping::ProcessNewKeyFrame): refresh the
@@ -462,7 +524,9 @@ class LocalMapper:
 
     def _local_ba_solve(self, prob):
         """The reference's chunked schedule: local_ba_iters LM iterations in
-        chunks of 5, the outlier round after the last chunk."""
+        chunks of 5, the outlier round after the last chunk. A waiting
+        keyframe (``interrupt``) stops it between chunks with one more
+        chunk and the outlier round, the reference's abbreviated finish."""
         rt = self.cfg.runtime
         chunk = 5
         done = 0
@@ -474,6 +538,10 @@ class LocalMapper:
                                  outlier_rounds=1 if last else 0)
             prob = prob._replace(poses=res.poses, points=res.points)
             done += n
+            if not last and self.interrupt():
+                res = ba.optimize_ba(cam=self.cam, prob=prob, iters=chunk,
+                                     outlier_rounds=1)
+                break
         return res
 
     def _local_ba_write_back(self, window, opt_mask, mp_ids, obs_valid,

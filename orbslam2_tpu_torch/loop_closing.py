@@ -1,6 +1,5 @@
 """Loop closing: detection, Sim3 alignment, correction, essential-graph
-optimization and global BA (port of ``orbslam2_tpu.loop_closing``,
-synchronous path).
+optimization and global BA (port of ``orbslam2_tpu.loop_closing``).
 
 The reference's order and host bookkeeping, with every device program a
 hand-written CUDA kernel on the map's device (its plain PyTorch version on
@@ -24,18 +23,28 @@ the CPU):
                     reference's overlapping-window sweep (windows of 256,
                     overlap 64, at most 32768 points a window)
 
-Not in this slice: the background GBA task (slice 9) and the mesh solves
-(slice 10); each raises NotImplementedError naming its slice.
+With ``background_gba`` (the asynchronous system sets it) the closure's
+global BA runs as a detached task (``launch_global_ba_background``, the
+reference's RunGlobalBundleAdjustment thread): it takes the map lock only
+to gather and to write back, reads its abort flag between LM chunks, and a
+newer closure supersedes a running one. A failure of the task is printed
+and kept in ``gba_error`` for the system to raise on its caller's thread.
+
+Not in this slice: the mesh solves (slice 10), which raise
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
+import threading
+import traceback
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from .config import SlamConfig
+from .device import on as on_device
 from .kernels import fuse_match as _fuse_match
 from .kernels import hamming as _hamming
 from .kernels import match_rot as _match_rot
@@ -62,6 +71,11 @@ class LoopCloser:
         self.loops_closed = 0
         # the last closure's numbers (matches, inliers, GBA size)
         self.last_stats: Dict[str, int] = {}
+        # background GBA (RunGlobalBundleAdjustment, mbStopGBA)
+        self.background_gba = False  # the asynchronous system turns it on
+        self.gba_thread: Optional[threading.Thread] = None
+        self.gba_abort = threading.Event()
+        self.gba_error: Optional[BaseException] = None  # the first failure
 
     @property
     def device(self) -> torch.device:
@@ -327,7 +341,45 @@ class LoopCloser:
         self._search_and_fuse(kf, loop_kf, group)
         self._optimize_essential_graph(kf, loop_kf, pre_poses, corrected)
         if run_global_ba:
-            self.global_bundle_adjustment()
+            if self.background_gba:
+                self.launch_global_ba_background()
+            else:
+                self.global_bundle_adjustment()
+
+    # ------------------------------------------------------------------
+    # Background global BA (RunGlobalBundleAdjustment, mbStopGBA)
+    # ------------------------------------------------------------------
+    def launch_global_ba_background(self):
+        """Start global BA as its own task; a running one is superseded:
+        its abort flag is set and it is joined first (it leaves at its next
+        LM chunk or lock wait, discarding its result)."""
+        if self.gba_thread is not None and self.gba_thread.is_alive():
+            self.gba_abort.set()
+            self.gba_thread.join(timeout=60.0)
+            if self.gba_thread.is_alive():
+                raise TimeoutError("the superseded global BA did not stop in 60 s")
+        self.gba_abort.clear()
+        self.gba_thread = threading.Thread(target=self._gba_task,
+                                           name="global-ba", daemon=True)
+        self.gba_thread.start()
+
+    def wait_global_ba(self, timeout: Optional[float] = None) -> bool:
+        """Join a running global BA; False if it still runs after
+        ``timeout`` seconds."""
+        if self.gba_thread is not None and self.gba_thread.is_alive():
+            self.gba_thread.join(timeout)
+            return not self.gba_thread.is_alive()
+        return True
+
+    def _gba_task(self):
+        try:
+            with on_device(self.device):
+                self.global_bundle_adjustment(abort_check=self.gba_abort.is_set)
+        except Exception as e:  # the task's boundary: report and keep it
+            traceback.print_exc()
+            print(f"[global BA] task failed: {e!r}")
+            if self.gba_error is None:
+                self.gba_error = e
 
     def _correct_group(self, kf: int, loop_kf: int, S12: np.ndarray):
         """The corrected Sim3 of the current keyframe and its covisible

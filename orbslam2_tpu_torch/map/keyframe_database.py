@@ -12,6 +12,12 @@ uploaded there once.
 
 The rows are kept in float16, as the reference keeps them: the candidate
 lists depend on that rounding, and the checkpoint stores it.
+
+``precompute_async(kf)``, which the local mapper calls at the start of a
+keyframe's round when loops are closed, launches kernel Y for the keyframe
+and starts a non-blocking copy of its vector to the host; ``row`` and
+``add`` take that copy when the loop closer reaches the keyframe, and
+``erase`` drops it.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve as resolve_device
+from ..device import HostCopy, resolve as resolve_device
 from ..ops import bow
 from .state import MapState
 
@@ -41,29 +47,45 @@ class KeyFrameDatabase:
         self.in_db = np.zeros(K, bool)
         self._vocab_dev: Optional[torch.Tensor] = None
         self._idf_dev: Optional[torch.Tensor] = None
+        self._pending: dict = {}  # keyframe slot: HostCopy of its vector
 
     # ------------------------------------------------------------------
-    def compute_bow(self, desc: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
-        """The (W,) float32 BoW vector of (N, 32) descriptors (tensors on
-        the database's device; kernel Y there), copied to the host."""
+    def _bow_dispatch(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if self._vocab_dev is None:
             self._vocab_dev = torch.from_numpy(
                 bow.pack_vocabulary(self.vocab)).to(self.device)
             self._idf_dev = (None if self.idf is None else
                              torch.from_numpy(np.asarray(self.idf, np.float32))
                              .to(self.device))
-        return bow.bow_vector(desc, valid, self._vocab_dev,
-                              self._idf_dev).cpu().numpy()
+        return bow.bow_vector(desc, valid, self._vocab_dev, self._idf_dev)
 
-    def row(self, kf: int) -> np.ndarray:
-        """The BoW vector of keyframe ``kf``: its cached row, else computed
-        from the keyframe's features on the device mirror."""
-        if kf < self.bow_mat.shape[0] and self.bow_mat[kf].any():
-            return self.bow_mat[kf]
+    def compute_bow(self, desc: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
+        """The (W,) float32 BoW vector of (N, 32) descriptors (tensors on
+        the database's device; kernel Y there), copied to the host."""
+        return self._bow_dispatch(desc, valid).cpu().numpy()
+
+    def _keyframe_bow(self, kf: int) -> torch.Tensor:
+        """Kernel Y on keyframe ``kf``'s features in the device mirror."""
         m = self.map
         with m.lock:
             mir = m.dev_kf.ensure(m)
-            vec = self.compute_bow(mir["kf_desc"][kf], mir["kf_feat_valid"][kf])
+            return self._bow_dispatch(mir["kf_desc"][kf], mir["kf_feat_valid"][kf])
+
+    def precompute_async(self, kf: int):
+        """Launch kernel Y for keyframe ``kf`` and start its vector's copy to
+        the host without waiting; ``row``/``add`` consume it later. A
+        keyframe's descriptors never change, so the vector cannot go stale;
+        ``erase`` drops it before a recycled slot is reused."""
+        self._pending[kf] = HostCopy(self._keyframe_bow(kf))
+
+    def row(self, kf: int) -> np.ndarray:
+        """The BoW vector of keyframe ``kf``: its cached row, its pending
+        copy, else computed from the keyframe's features on the device
+        mirror, in that order."""
+        if kf < self.bow_mat.shape[0] and self.bow_mat[kf].any():
+            return self.bow_mat[kf]
+        copy = self._pending.pop(kf, None)
+        vec = (copy.result() if copy is not None else self._keyframe_bow(kf)).cpu().numpy()
         if kf < self.bow_mat.shape[0]:
             self.bow_mat[kf] = vec
         return vec
@@ -80,6 +102,7 @@ class KeyFrameDatabase:
     def erase(self, kf: int):
         self.in_db[kf] = False
         self.bow_mat[kf] = 0.0
+        self._pending.pop(kf, None)
 
     # ------------------------------------------------------------------
     def _candidate_scores(self, query_bow: np.ndarray, exclude: np.ndarray):

@@ -19,11 +19,12 @@ from __future__ import annotations
 
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from . import image as img_ops
 from ..config import ExtractorConfig
-from ..device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
+from ..device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device, upload
 from ..kernels import describe as _describe
 from ..kernels import fast_score as _fast_score
 from ..kernels import orb_select as _select
@@ -124,6 +125,7 @@ class OrbExtractor:
         return feats
 
     def __call__(self, img) -> Features:
-        if not isinstance(img, torch.Tensor):
-            img = torch.as_tensor(img)
-        return self.extract(img.to(self.device, torch.float32))
+        if isinstance(img, torch.Tensor):
+            return self.extract(img.to(self.device, torch.float32))
+        # a host image goes up without waiting for the stream
+        return self.extract(upload(np.asarray(img, np.float32), self.device))

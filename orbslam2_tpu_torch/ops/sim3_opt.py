@@ -51,7 +51,14 @@ def residuals(cam: Camera, S12, p1c, p2c, u1, u2, inv_s1, inv_s2):
 
 def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
                   valid, fix_scale: bool = False, th2: float = TH2,
-                  iters1: int = ITERS1, iters2: int = ITERS2) -> Sim3OptResult:
+                  iters1: int = ITERS1, iters2: int = ITERS2,
+                  mid_inliers=None, replay=None, trace=None) -> Sim3OptResult:
+    """To replay another run's decisions (a sum taken in another order may
+    put a pair's chi2 or a step's cost on the other side of a comparison):
+    ``mid_inliers``, given, replaces the chi2 gate's inlier set between the
+    two phases, and ``replay``, given, each LM iteration's accept decision
+    (iters1 + iters2 of them, in order). ``trace``, a list, receives the
+    decisions taken."""
     inv_s1 = 1.0 / torch.sqrt(sigma2_1.clamp_min(1e-9))
     inv_s2 = 1.0 / torch.sqrt(sigma2_2.clamp_min(1e-9))
     delta = th2 ** 0.5
@@ -70,10 +77,10 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
         c1, c2 = edge_chi2(S)
         return (mask * (hub(c1) + hub(c2))).sum()
 
-    def lm_phase(S, mask, n_iters):
+    def lm_phase(S, mask, n_iters, first):
         lam = torch.tensor(1e-3, dtype=p1c.dtype, device=p1c.device)
         maskf = mask.to(p1c.dtype)
-        for _ in range(n_iters):
+        for it in range(n_iters):
             def res_flat(xi):
                 # batched (1, 7), as in residuals
                 Sx = geo.sim3_compose(geo.sim3_exp(xi[None]), S[None])[0]
@@ -102,14 +109,20 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
             dx = -torch.linalg.solve(Hd, g)
             S_new = geo.sim3_compose(geo.sim3_exp(dx), S)
             better = cost(S_new, maskf) < cost(S, maskf)
+            if replay is not None:
+                better = torch.tensor(bool(replay[first + it]), device=p1c.device)
+            if trace is not None:
+                trace.append(bool(better))
             S = torch.where(better, S_new, S)
             lam = torch.where(better, lam * 0.5, lam * 4.0).clamp(1e-6, 1e4)
         return S
 
-    S = lm_phase(S12_0, valid, iters1)
+    S = lm_phase(S12_0, valid, iters1, 0)
     c1, c2 = edge_chi2(S)
     inl = valid & (c1 <= th2) & (c2 <= th2)
-    S = lm_phase(S, inl, iters2)
+    if mid_inliers is not None:
+        inl = mid_inliers
+    S = lm_phase(S, inl, iters2, iters1)
     c1, c2 = edge_chi2(S)
     inl = valid & (c1 <= th2) & (c2 <= th2)
     return Sim3OptResult(S12=S, inliers=inl, n_inliers=inl.to(torch.int32).sum())

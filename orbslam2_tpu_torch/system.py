@@ -1,5 +1,6 @@
-"""SlamSystem facade — the public API (port of ``orbslam2_tpu.system``,
-synchronous path).
+"""SlamSystem facade — the public API (port of ``orbslam2_tpu.system``;
+``pipeline.AsyncSlamSystem`` runs it with mapping and loop closing on
+worker threads).
 
 Construction wires the map, the keyframe database, the tracker, the
 local mapper and (by default, as the reference) the loop closer onto one
@@ -10,7 +11,10 @@ Sim3 alignment, the correction, the essential graph and global BA, after
 which the keyframe enters the database. A lost tracker relocalizes against
 the database. ``save_map`` / ``load_map`` persist the map and the database
 (the reference's file format); localization mode tracks without growing
-the map. Trajectories export in the TUM and KITTI formats.
+the map. Trajectories export in the TUM and KITTI formats. With loop
+closing on, the mapper launches each keyframe's BoW vector at the start of
+its round (``KeyFrameDatabase.precompute_async``). ``warmup()`` builds the
+kernel library and runs a synthetic frame and keyframe round beforehand.
 """
 
 from __future__ import annotations
@@ -49,6 +53,17 @@ class SlamSystem:
         self.loop_closer = LoopCloser(
             self.cfg, self.map, self.tracker.cam, self.kfdb
         ) if self.enable_loop_closing else None
+        if self.loop_closer is not None:  # else nothing takes the vectors
+            self.local_mapper.bow_precompute = self.kfdb.precompute_async
+
+    def warmup(self) -> float:
+        """Build the kernel library and run one synthetic frame and one
+        keyframe round at this system's shapes on a scratch map, so that
+        the first real frame pays no build or module load; returns the
+        seconds taken."""
+        from .warmup import warmup_system
+
+        return warmup_system(self)
 
     # ------------------------------------------------------------------
     # Tracking entry points
@@ -105,6 +120,10 @@ class SlamSystem:
 
     def reset(self):
         self._build()
+
+    def shutdown(self):
+        """The synchronous system has nothing running between calls;
+        ``AsyncSlamSystem.shutdown`` stops its workers."""
 
     # ------------------------------------------------------------------
     # Map persistence

@@ -1,5 +1,6 @@
 """Tracking: per-frame pose estimation state machine (port of
-``orbslam2_tpu.tracking``, synchronous path: RGB-D, stereo, monocular).
+``orbslam2_tpu.tracking``: RGB-D, stereo, monocular; synchronous and
+pipelined).
 
 The same FSM as the reference (NO_IMAGES_YET / NOT_INITIALIZED / OK / LOST),
 motion-model + local-map tracking and the keyframe decision. Per frame:
@@ -24,12 +25,21 @@ host-drawn samples (kernel Z), then one or two projection passes (O, C, Q,
 D and the pack, kernel R). Without a keyframe database a LOST tracker stays
 lost, as the reference's does with ``kfdb=None``. In localization mode no
 keyframe is made and a loss resets nothing; the last frame's close depths
-become temporary points of the local map. Pipelined tracking (ROADMAP
-queue 1, slice 9) raises NotImplementedError.
+become temporary points of the local map.
+
+Pipelined tracking (``track_pipelined``) dispatches a frame before the
+previous one has committed: the motion-model prediction is made on the
+device from the previous dispatch's pose output (kernel R', the chained
+cascade ``track_frame_fused_chained``), the packed result is copied into a
+pinned host buffer without blocking, and the oldest frame in flight commits
+once its copy has landed (``runtime.pipeline_depth`` frames behind, at most
+``runtime.pipeline_depth_max``). Initialization, relocalization and loss
+fall back to the synchronous path.
 """
 
 from __future__ import annotations
 
+import collections
 import enum
 import time
 from types import SimpleNamespace
@@ -39,12 +49,14 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
-from .device import DEFAULT as DEFAULT_DEVICE, resolve as resolve_device
+from .device import DEFAULT as DEFAULT_DEVICE, HostCopy, upload
+from .device import resolve as resolve_device
 from .kernels import cascade_pack as _cascade_pack
 from .kernels import claim_resolve as _claim_resolve
 from .kernels import hamming as _hamming
 from .kernels import match_rot as _match_rot
 from .kernels import pnp_ransac as _pnp_ransac
+from .kernels import pose_chain as _pose_chain
 from .kernels import pose_lm as _pose_lm
 from .kernels import project_gate as _project_gate
 from .kernels import rgbd_depth as _rgbd_depth
@@ -99,13 +111,14 @@ _KERNELS = SimpleNamespace(
     project_gate=_project_gate.project_gate,
     hamming_top2_gated=_hamming.hamming_top2_gated,
     claim_resolve=_claim_resolve.claim_resolve, pose_lm=_pose_lm.pose_lm,
-    cascade_pack=_cascade_pack.cascade_pack)
+    cascade_pack=_cascade_pack.cascade_pack, pose_chain=_pose_chain.pose_chain)
 _PLAIN = SimpleNamespace(
     project_gate=_project_gate.project_gate_plain,
     hamming_top2_gated=_hamming.hamming_top2_gated_plain,
     claim_resolve=_claim_resolve.claim_resolve_plain,
     pose_lm=_pose_lm.pose_lm_plain,
-    cascade_pack=_cascade_pack.cascade_pack_plain)
+    cascade_pack=_cascade_pack.cascade_pack_plain,
+    pose_chain=_pose_chain.pose_chain_plain)
 
 
 def project_match(k, cam: Camera, Tcw, mp_pos, mp_desc, mp_valid, mp_normal,
@@ -186,6 +199,31 @@ def track_frame_fused(
                           kp_valid, kp_depth, th_depth)
 
 
+def track_frame_fused_chained(
+    cam: Camera, Tcw_prev, Tcw_prev2, have_motion: bool, mp_pos, mp_desc,
+    mp_valid, mp_normal, mp_dmin, mp_dmax, kp_xy, kp_desc, kp_octave,
+    kp_valid, kp_ur, kp_depth, th_depth: float, base_radius: float,
+    scale_factor: float, n_levels: int, min_inliers_track: int,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cascade with the motion-model prediction made on the device from
+    the pose chain (Tcw_prev, the previous dispatch's pose, possibly still
+    being computed; Tcw_prev2, the one before): kernel R' re-projects both
+    links onto SE(3) and predicts vel Tcw_prev (Tcw_prev alone without a
+    motion model, at twice ``base_radius``), then ``track_frame_fused``
+    (O, C, Q, D, R), then R' orthonormalizes the packed pose into the next
+    link. Returns (packed, Tcw): the link stays on the device to seed the
+    next dispatch."""
+    k = _PLAIN if plain else _KERNELS
+    T_pred = k.pose_chain(Tcw_prev, Tcw_prev2, have_motion)
+    radius = base_radius if have_motion else 2.0 * base_radius
+    packed = track_frame_fused(
+        cam, T_pred, mp_pos, mp_desc, mp_valid, mp_normal, mp_dmin, mp_dmax,
+        kp_xy, kp_desc, kp_octave, kp_valid, kp_ur, kp_depth, th_depth,
+        radius, scale_factor, n_levels, min_inliers_track, plain=plain)
+    return packed, k.pose_chain(packed[:16].view(4, 4))
+
+
 def match_frames_windowed(desc_a, xy_a, angle_a, valid_a, desc_b, xy_b,
                           angle_b, valid_b, window: float, nn_ratio: float = 0.9
                           ) -> matching.MatchResult:
@@ -234,6 +272,21 @@ class Tracker:
         self.localization_only = False  # no keyframes, no map growth
         self.pending_keyframes: List[int] = []
         self.init_ref: Optional[FrameData] = None  # monocular init reference
+        # the asynchronous system's hooks: a keyframe waits in the mapping
+        # queue (back-pressure), and the mapper's seconds a keyframe (pace)
+        self.mapping_busy = lambda: False
+        self.mapping_kf_cost = lambda: 0.0
+        # pipelined tracking: the frames in flight, (frame, sel, HostCopy of
+        # the packed result, t_start), oldest first; the pose chain on the
+        # device (Tcw_prev, Tcw_prev2); the pinned buffers the results are
+        # copied into; whether the last commit took the fallback
+        self._pending: "collections.deque" = collections.deque()
+        self._chain: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._ring: List[torch.Tensor] = []
+        self._ring_next = 0
+        self._fallback_used = False
+        # frames the pose last returned by track_pipelined lags its frame
+        self.pose_lag = 0
         self._rng = np.random.default_rng(cfg.runtime.seed)
         self._neg_ones: Optional[torch.Tensor] = None
         self._local_cache_key = None
@@ -252,7 +305,7 @@ class Tracker:
                     right_img: Optional[np.ndarray] = None) -> FrameData:
         if right_img is not None:
             # the level-0 images stay on the device for kernel W
-            img = torch.as_tensor(np.asarray(img)).to(self.device, torch.float32)
+            img = upload(np.asarray(img, np.float32), self.device)
         feats = self.extractor(img)
         n = feats.xy.shape[0]
         if self._neg_ones is None or self._neg_ones.shape[0] != n:
@@ -267,8 +320,7 @@ class Tracker:
         if right_img is not None:
             # stereo: the right image's features, matched along epipolar
             # rows (kernel V) and refined to subpixel (kernel W)
-            right = torch.as_tensor(np.asarray(right_img)).to(self.device,
-                                                              torch.float32)
+            right = upload(np.asarray(right_img, np.float32), self.device)
             feats_r = self.extractor(right)
             ur0, depth0 = stereo.stereo_match(
                 feats, feats_r, self.cam.bf, self._f32(self._baseline),
@@ -289,7 +341,7 @@ class Tracker:
             # kernel L: (xy_undist, ur, depth) of the keypoints from the
             # uint16 upload; it also undistorts them
             dev["xy"], dev["ur"], dev["depth"] = _rgbd_depth.rgbd_depth(
-                torch.from_numpy(d_u16).to(self.device), self._f32(1.0 / scale),
+                upload(d_u16, self.device), self._f32(1.0 / scale),
                 feats.xy, feats.valid, self.cam, stride=stride,
             )
         fid = self._next_frame_id
@@ -305,12 +357,11 @@ class Tracker:
         frame = self._make_frame(img, timestamp, depth_map, right_img)
         return self._track_core(frame, t_start)
 
-    def track_pipelined(self, *args, **kwargs):
-        raise NotImplementedError(
-            "pipelined tracking comes with ROADMAP queue 1, slice 9")
-
     def _track_core(self, frame: FrameData, t_start: float) -> Optional[np.ndarray]:
         new_kf = None
+        # a synchronous excursion drives the pose from host state: the
+        # device chain is stale from here
+        self._chain = None
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
 
@@ -359,6 +410,94 @@ class Tracker:
         self.frame_id = frame.frame_id + 1
         if new_kf is not None:
             self.pending_keyframes.append(new_kf)
+
+    # ------------------------------------------------------------------
+    # Pipelined tracking: commit behind the dispatch
+    # ------------------------------------------------------------------
+    def track_pipelined(self, img: np.ndarray, timestamp: float,
+                        depth_map: Optional[np.ndarray] = None,
+                        right_img: Optional[np.ndarray] = None
+                        ) -> Optional[np.ndarray]:
+        """Dispatch this frame's device work, retire the oldest frame(s) in
+        flight, and return the freshest committed pose. It lags the
+        dispatched frame by ``runtime.pipeline_depth`` to
+        ``runtime.pipeline_depth_max`` frames (``self.pose_lag``, the lag of
+        the value just returned) and is None only before initialization or
+        across a loss; ``self.trajectory`` holds each frame's own pose once
+        it commits. Initialization, relocalization and loss take the
+        synchronous path: their control flow needs the frame's result."""
+        t_start = time.perf_counter()
+        frame = self._make_frame(img, timestamp, depth_map, right_img)
+        if self.state in (TrackingState.NO_IMAGES_YET,
+                          TrackingState.NOT_INITIALIZED, TrackingState.LOST):
+            self.flush_pipeline()
+            self.pose_lag = 0
+            return self._track_core(frame, t_start)
+        # dispatch first: the prediction comes from the chain on the device,
+        # so it does not wait for the previous frame's commit
+        sel, packed = self._dispatch_track_chained(frame)
+        self._pending.append((frame, sel, self._start_copy(packed), t_start))
+        depth, depth_max = self._depths()
+        # past depth_max a commit waits for its copy; between depth and
+        # depth_max a frame retires only once its copy has landed, so a
+        # slow copy stretches the queue instead of stalling the dispatch
+        while len(self._pending) > depth_max:
+            self._commit_pending_one()
+        while len(self._pending) > depth and self._pending[0][2].done():
+            self._commit_pending_one()
+        if self.last_frame is not None and self.last_frame.Tcw is not None:
+            self.pose_lag = frame.frame_id - self.last_frame.frame_id
+            return self.last_frame.Tcw
+        self.pose_lag = 0
+        return None
+
+    def _depths(self) -> Tuple[int, int]:
+        rt = self.cfg.runtime
+        depth = max(int(rt.pipeline_depth), 1)
+        return depth, max(int(rt.pipeline_depth_max), depth)
+
+    def _start_copy(self, packed: torch.Tensor) -> HostCopy:
+        """Start the packed result's copy to the host. On the card it goes
+        into the next of pipeline_depth_max + 1 pinned buffers: at most
+        pipeline_depth_max frames are in flight when a frame is dispatched,
+        so a buffer is written again only after its frame has committed."""
+        if packed.device.type != "cuda":
+            return HostCopy(packed)
+        n = self._depths()[1] + 1
+        if len(self._ring) != n or self._ring[0].shape != packed.shape:
+            self._ring = [torch.empty(packed.shape, dtype=packed.dtype,
+                                      pin_memory=True) for _ in range(n)]
+        buf = self._ring[self._ring_next % n]
+        self._ring_next += 1
+        return HostCopy(packed, into=buf)
+
+    def _commit_pending_one(self) -> Optional[np.ndarray]:
+        if not self._pending:
+            return None
+        frame, sel, copy, t_start = self._pending.popleft()
+        self._fallback_used = False
+        ok = self._finish_track(frame, sel, copy.result())
+        new_kf = self._handle_result(frame, ok)
+        self._finalize_frame(frame, new_kf, t_start)
+        if self._fallback_used and self._pending:
+            # the committed frame's result was rejected: every frame still
+            # in flight was predicted off the same broken chain, so each is
+            # tracked again, in order, from host predictions (its features
+            # are still on the device)
+            self._chain = None
+            stale = list(self._pending)
+            self._pending.clear()
+            for f2, _, _, t2 in stale:
+                self._track_core(f2, t2)
+        return frame.Tcw
+
+    def flush_pipeline(self) -> Optional[np.ndarray]:
+        """Commit every frame in flight (before reading the trajectory or
+        the state at shutdown, or on a control-flow transition)."""
+        pose = None
+        while self._pending:
+            pose = self._commit_pending_one()
+        return pose
 
     # ------------------------------------------------------------------
     # Initialization
@@ -502,12 +641,9 @@ class Tracker:
         valid[: len(mp_ids)] = True
         dev = self.device
         buf = dict(
-            pos=torch.from_numpy(m.mp_pos[sel]).to(dev),
-            desc=torch.from_numpy(m.mp_desc[sel]).to(dev),
-            valid=torch.from_numpy(valid).to(dev),
-            normal=torch.from_numpy(m.mp_normal[sel]).to(dev),
-            dmin=torch.from_numpy(m.mp_dmin[sel]).to(dev),
-            dmax=torch.from_numpy(m.mp_dmax[sel]).to(dev),
+            pos=upload(m.mp_pos[sel], dev), desc=upload(m.mp_desc[sel], dev),
+            valid=upload(valid, dev), normal=upload(m.mp_normal[sel], dev),
+            dmin=upload(m.mp_dmin[sel], dev), dmax=upload(m.mp_dmax[sel], dev),
         )
         self._local_cache_key = key
         self._local_cache = (sel, buf)
@@ -560,7 +696,7 @@ class Tracker:
                    radius: float) -> torch.Tensor:
         cfge = self.cfg.extractor
         return track_frame_fused(
-            self.cam, torch.from_numpy(np.asarray(Tcw_pred, np.float32)).to(self.device),
+            self.cam, upload(np.asarray(Tcw_pred, np.float32), self.device),
             buf["pos"], buf["desc"], buf["valid"], buf["normal"],
             buf["dmin"], buf["dmax"],
             frame.dev["xy"], frame.dev["desc"], frame.dev["octave"],
@@ -605,6 +741,39 @@ class Tracker:
             radius = 2.0 * self.cfg.tracking.motion_model_radius
         return sel, self._run_fused(frame, Tcw_pred, buf, radius)
 
+    def _dispatch_track_chained(self, frame: FrameData):
+        """Dispatch the chained cascade: the prediction is made on the
+        device from the previous dispatch's pose output, so the dispatch
+        never waits for a copy to the host. After a synchronous excursion
+        (initialization, relocalization, fallback) the chain is seeded from
+        the host's last pose and velocity."""
+        sel, buf = self._gather_local_points()
+        if self.localization_only:
+            sel, buf = self._augment_vo_points(sel, buf)
+        if self._chain is not None:
+            Tcw_prev, Tcw_prev2 = self._chain
+            have_motion = True
+        else:
+            last = (self.last_frame.Tcw
+                    if self.last_frame is not None and self.last_frame.Tcw is not None
+                    else self.map.kf_pose[self.ref_kf])
+            Tcw_prev = upload(np.asarray(last, np.float32), self.device)
+            have_motion = self.velocity is not None
+            Tcw_prev2 = (upload((np.linalg.inv(self.velocity) @ last).astype(np.float32),
+                                self.device) if have_motion else Tcw_prev)
+        cfge = self.cfg.extractor
+        packed, Tcw_out = track_frame_fused_chained(
+            self.cam, Tcw_prev, Tcw_prev2, have_motion,
+            buf["pos"], buf["desc"], buf["valid"], buf["normal"], buf["dmin"],
+            buf["dmax"], frame.dev["xy"], frame.dev["desc"], frame.dev["octave"],
+            frame.dev["valid"], frame.dev["ur"], frame.dev["depth"],
+            self._f32(self.cfg.camera.th_depth * self._baseline),
+            self._f32(self.cfg.tracking.motion_model_radius),
+            self._f32(cfge.scale_factor), cfge.n_levels,
+            self.cfg.tracking.min_inliers_track)
+        self._chain = (Tcw_out, Tcw_prev)
+        return sel, packed
+
     def _track_frame(self, frame: FrameData) -> bool:
         sel, packed = self._dispatch_track(frame)
         return self._finish_track(frame, sel, packed)
@@ -614,7 +783,10 @@ class Tracker:
         if (n_inl < self.cfg.tracking.min_inliers_track
                 or n_inl2 < self.cfg.tracking.min_inliers_local_map):
             # fall back to matching against the reference keyframe
-            # (Tracking::TrackReferenceKeyFrame)
+            # (Tracking::TrackReferenceKeyFrame); the pose chain is no
+            # longer to be trusted
+            self._fallback_used = True
+            self._chain = None
             return self._track_reference_keyframe(frame)
         self._commit_track(frame, sel, Tcw2, n_inl, n_inl2, inl, kp_of_mp,
                            frustum)
@@ -790,16 +962,25 @@ class Tracker:
         if n_kfs < 2:
             th_ref = 0.4
 
-        # the synchronous system maps every keyframe before the next frame,
-        # so the mapper is always idle here (the reference's c1b without
-        # its busy and pacing terms)
         c1a = since >= tcfg.max_frames_between_kf
-        c1b = since >= max(tcfg.min_frames_between_kf, 3)
+        # c1b: the mapper is idle and the gap since the last keyframe covers
+        # its measured cost a keyframe, so admission settles at the rate
+        # mapping sustains (the synchronous system's mapper is always idle
+        # and costs 0); the deadline (c1a) and close-point starvation (c1c)
+        # override the pace
+        pace = min(self.mapping_kf_cost() * self.cfg.camera.fps,
+                   0.5 * tcfg.max_frames_between_kf)
+        c1b = since >= max(tcfg.min_frames_between_kf, 3, pace) and \
+            not self.mapping_busy()
         c1c = has_depth and (
             self.n_inliers_last < ref_tracked * 0.25 or need_close)
         c2 = (self.n_inliers_last < ref_tracked * th_ref or need_close) \
             and self.n_inliers_last > 15
-        return bool((c1a or c1b or c1c) and c2)
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        # a keyframe that waits for a busy mapper interrupts its local BA:
+        # only the depth-urgent case is worth that
+        return bool(c1c) if self.mapping_busy() else True
 
     def _create_keyframe(self, frame: FrameData) -> int:
         with self.map.lock:

@@ -132,9 +132,17 @@ class TestRgbdPipeline:
             else:
                 assert other.track_monocular(img, 0.0) is None
             assert other.tracking_state != TrackingState.NO_IMAGES_YET
+        # pipelined tracking is ported (slice 9): a first frame initializes
+        # through it; the mesh solves (slice 10) still raise
         slam = SlamSystem(_cfg(), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            slam.tracker.track_pipelined(None, 0.0)
+        depth = rgbd_sequence[0][0][1]
+        assert slam.tracker.track_pipelined(img, 0.0, depth_map=depth) is not None
+        assert slam.tracking_state == TrackingState.OK
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            closer.global_bundle_adjustment(use_mesh=True)
+        closer.cfg.runtime.mesh_essential_graph = True
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            closer._optimize_essential_graph(0, 1, {}, {})
         # localization mode is ported (slice 7): it switches the tracker
         slam.activate_localization_mode()
         assert slam.tracker.localization_only

@@ -395,3 +395,74 @@ def test_match_rot_exact(case):
         assert not valid[:80][vb[:80] & vb[160:240]].any()
         assert valid[80:120].sum() > 20
         assert not valid[240:280][va[80:120]].any()
+
+
+def _off_so3(T, rng, eps=1e-4):
+    """T with its rotation perturbed off SO(3) by ~eps, as a pose chained
+    over many float32 compositions drifts."""
+    out = T.copy()
+    out[:3, :3] += rng.normal(0.0, eps, (3, 3)).astype(np.float32)
+    return out
+
+
+def _chain_links(seed=21):
+    """(Tcw_prev, Tcw_prev2) around _cascade_inputs()'s prediction: the
+    previous pose 1 cm behind it, the one before 2 cm, each slightly turned
+    and off SO(3)."""
+    rng = np.random.default_rng(seed)
+    _, _, T_pred = _cascade_inputs()
+    prev, prev2 = T_pred.copy(), T_pred.copy()
+    prev[0, 3] -= 0.01
+    prev2[0, 3] -= 0.02
+    prev = _off_so3(_yawed(prev, 0.002), rng)
+    prev2 = _off_so3(_yawed(prev2, 0.004), rng)
+    return prev, prev2
+
+
+@pytest.mark.parametrize("motion", [True, False])
+def test_pose_chain_plain_matches_reference(motion):
+    """Kernel R''s plain version against the reference's algebra
+    (geometry.se3_orthonormalize on both links, vel = T_prev
+    se3_inverse(T_prev2), vel T_prev; T_prev alone without the motion
+    model) within 1e-6."""
+    from orbslam2_tpu.ops import geometry as jgeo
+    from orbslam2_tpu_torch.kernels import pose_chain
+
+    prev, prev2 = _chain_links()
+    a, b = jgeo.se3_orthonormalize(jnp.asarray(prev)), jgeo.se3_orthonormalize(jnp.asarray(prev2))
+    ref = np.asarray(a @ jgeo.se3_inverse(b) @ a if motion else a)
+    out = pose_chain.pose_chain(_t(prev), _t(prev2), motion).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    np.testing.assert_allclose(out[:3, :3] @ out[:3, :3].T, np.eye(3), atol=1e-6)
+    link = pose_chain.pose_chain(_t(prev)).numpy()
+    np.testing.assert_allclose(link, np.asarray(a), atol=1e-6)
+
+
+@pytest.mark.parametrize("motion", [True, False])
+def test_track_frame_fused_chained_matches_reference(motion):
+    """The chained cascade (R', O, C, Q, D, R, R') against the reference's
+    track_frame_fused_chained from the same links, off SO(3) by ~1e-4, with
+    and without the motion model: the packed result at _packed_pair's
+    tolerances (pose 1e-4, counts within 1%, codes >= 99% equal) and the
+    next link within 1e-4."""
+    mp, kp, _ = _cascade_inputs()
+    prev, prev2 = _chain_links()
+    args = [mp[k] for k in MP_KEYS] + [kp[k] for k in KP_KEYS + ("depth",)]
+    pj, Tj = jtrack.track_frame_fused_chained(
+        JCamera.create(**CAM), jnp.asarray(prev), jnp.asarray(prev2),
+        jnp.asarray(motion), *(jnp.asarray(a) for a in args), jnp.float32(35.0),
+        jnp.float32(15.0), jnp.float32(1.2), 4, 10)
+    pj, Tj = np.asarray(pj), np.asarray(Tj)
+    pt, Tt = ttrack.track_frame_fused_chained(
+        TCamera.create(**CAM), _t(prev), _t(prev2), motion, *(_t(a) for a in args),
+        35.0, 15.0, 1.2, 4, 10)
+    pt, Tt = pt.numpy(), Tt.numpy()
+    assert pj[17] > 100  # the cascade tracked
+    np.testing.assert_allclose(pt[:16], pj[:16], atol=1e-4)
+    for i in (16, 17, 18, 19):
+        assert abs(pt[i] - pj[i]) <= max(0.01 * pj[i], 1), (i, pt[i], pj[i])
+    assert (pt[20:] == pj[20:]).mean() >= 0.99
+    np.testing.assert_allclose(Tt, Tj, atol=1e-4)
+    # the next link is the packed pose re-projected onto SE(3)
+    np.testing.assert_allclose(Tt[:3, :3] @ Tt[:3, :3].T, np.eye(3), atol=1e-6)
+    np.testing.assert_allclose(Tt, pt[:16].reshape(4, 4), atol=1e-5)

@@ -98,6 +98,11 @@ __device__ __forceinline__ float chi2_of(const float r[3], float sigma2) {
 }
 
 __device__ __forceinline__ float rho(float chi2, bool huber, float delta2) {
+  // a NaN chi2 (a trial step from a failed factorization) stays NaN, as
+  // the reference's jnp.minimum / jnp.maximum keep it, so that the trial
+  // cost is NaN and H rejects the step; fminf / fmaxf would return the
+  // other operand, a finite (with Huber, negative) cost that H accepts
+  if (isnan(chi2)) return chi2;
   if (!huber) return fminf(chi2, 1e6f);
   return chi2 <= delta2 ? chi2
                         : 2.0f * sqrtf(delta2 * fmaxf(chi2, 1e-12f)) - delta2;

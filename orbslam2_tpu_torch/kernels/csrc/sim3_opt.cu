@@ -189,7 +189,7 @@ sim3_opt_lm(const float* __restrict__ S0, Edge e, const float* __restrict__ s2_1
             int N, Cam cam, int fix_scale, float th2, int iters1, int iters2,
             float* __restrict__ inv1, float* __restrict__ inv2,
             uint8_t* __restrict__ mask, float* __restrict__ out,
-            uint8_t* __restrict__ accepts) {
+            float* __restrict__ costs) {
   __shared__ Xform xf, xfi;      // S_x = exp(xi) S and its inverse, in duals
   __shared__ float sx_cur[26], sx_new[26];
   __shared__ Sim3<float> S, S_new;
@@ -294,8 +294,12 @@ sim3_opt_lm(const float* __restrict__ S0, Edge e, const float* __restrict__ s2_1
       block_reduce(cost, red);
       if (threadIdx.x == 0) {
         better = cost[0] < cost[1];
-        // each iteration's accept decision, for a caller that replays them
-        if (accepts != nullptr) accepts[phase * iters1 + it] = better ? 1 : 0;
+        // each iteration's cost pair (trial, current), for a caller that
+        // holds the accept decisions to another LM's
+        if (costs != nullptr) {
+          costs[2 * (phase * iters1 + it)] = cost[0];
+          costs[2 * (phase * iters1 + it) + 1] = cost[1];
+        }
         if (better) S = S_new;
         lam = fminf(fmaxf(better ? lam * 0.5f : lam * 4.0f, 1e-6f), 1e4f);
       }
@@ -432,12 +436,12 @@ OSL_EXPORT int osl_sim3_opt(const float* S0, const float* p1, const float* p2,
                             float fx, float fy, float cx, float cy,
                             int fix_scale, float th2, int iters1, int iters2,
                             float* inv1, float* inv2, uint8_t* mask, float* out,
-                            uint8_t* accepts, void* stream) {
+                            float* costs, void* stream) {
   const Edge e{p1, p2, u1, u2, nullptr, nullptr};
   const Cam cam{fx, fy, cx, cy, 0.0f, 0.0f};
   sim3_opt_lm<<<1, kLmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       S0, e, s2_1, s2_2, valid, N, cam, fix_scale, th2, iters1, iters2, inv1, inv2,
-      mask, out, accepts);
+      mask, out, costs);
   return static_cast<int>(cudaGetLastError());
 }
 

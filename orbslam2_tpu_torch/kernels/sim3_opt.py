@@ -46,22 +46,23 @@ def unpack(packed: np.ndarray, n: int) -> sim3_opt.Sim3OptResult:
 
 def optimize_sim3_plain(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1,
                         sigma2_2, valid, fix_scale: bool = False,
-                        iters2: int = sim3_opt.ITERS2, **replay) -> torch.Tensor:
-    """``replay``: ``mid_inliers``, ``replay`` and ``trace`` of
-    ``ops.sim3_opt.optimize_sim3``."""
+                        iters2: int = sim3_opt.ITERS2, mid_inliers=None,
+                        decide=None) -> torch.Tensor:
+    """``mid_inliers`` and ``decide``: as ``ops.sim3_opt.optimize_sim3``'s."""
     return pack(sim3_opt.optimize_sim3(cam, S12_0, p1c, p2c, u1, u2, sigma2_1,
                                        sigma2_2, valid, fix_scale, iters2=iters2,
-                                       **replay))
+                                       mid_inliers=mid_inliers, decide=decide))
 
 
 def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
                   valid, fix_scale: bool = False, iters2: int = sim3_opt.ITERS2,
-                  accepts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  costs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel M's LM on CUDA tensors, the plain version on CPU tensors.
     With ``iters2=0`` the result is the first phase's: its S12 and the chi2
-    gate's inlier set, which the second phase optimizes over. ``accepts``,
-    a (ITERS1 + iters2,) uint8 tensor on the device, receives the kernel's
-    accept decision of each LM iteration."""
+    gate's inlier set, which the second phase optimizes over. ``costs``, a
+    (ITERS1 + iters2, 2) float32 tensor on the device, receives each LM
+    iteration's robust cost at the trial step and at the current S12 (the
+    step is taken where the first is the lower)."""
     if p1c.device.type == "cpu":
         return optimize_sim3_plain(cam, S12_0, p1c, p2c, u1, u2, sigma2_1,
                                    sigma2_2, valid, fix_scale, iters2)
@@ -76,8 +77,8 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
         ("sigma2_1", sigma2_1, torch.float32, (N,)),
         ("sigma2_2", sigma2_2, torch.float32, (N,)),
         ("valid", valid, torch.bool, (N,)))
-        + ((("accepts", accepts, torch.uint8, (sim3_opt.ITERS1 + iters2,)),)
-           if accepts is not None else ()))
+        + ((("costs", costs, torch.float32, (sim3_opt.ITERS1 + iters2, 2)),)
+           if costs is not None else ()))
     f32 = dict(dtype=torch.float32, device=dev)
     inv1, inv2 = torch.empty(N, **f32), torch.empty(N, **f32)
     mask = torch.empty(N, dtype=torch.uint8, device=dev)
@@ -88,7 +89,7 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
         N, cam.fx, cam.fy, cam.cx, cam.cy, int(fix_scale), sim3_opt.TH2,
         sim3_opt.ITERS1, int(iters2), inv1.data_ptr(), inv2.data_ptr(),
         mask.data_ptr(), out.data_ptr(),
-        None if accepts is None else accepts.data_ptr(), build.stream_handle(dev))
+        None if costs is None else costs.data_ptr(), build.stream_handle(dev))
     build.check(err, NAME)
     build.count_launch(__name__)
     return out

@@ -569,7 +569,19 @@ class LoopCloser:
         and points outside the solve. Past the largest single-solve bucket
         (``sweep_window`` keyframes, 256 by default) the whole map is
         optimized by the overlapping-window sweep (``_gba_sweep``);
-        ``sweep_points`` and ``sweep_overlap`` set its other sizes."""
+        ``sweep_points`` and ``sweep_overlap`` set its other sizes. Slots
+        freed while it runs are recycled only after its write-back
+        (``MapState.hold_recycling``)."""
+        token = self.map.hold_recycling()
+        try:
+            return self._global_ba(iters, max_kfs, max_points, obs_cap, use_mesh,
+                                   abort_check, chunk, sweep_window,
+                                   sweep_points, sweep_overlap)
+        finally:
+            self.map.release_recycling(token)
+
+    def _global_ba(self, iters, max_kfs, max_points, obs_cap, use_mesh,
+                   abort_check, chunk, sweep_window, sweep_points, sweep_overlap):
         m = self.map
         if use_mesh:
             raise NotImplementedError(

@@ -132,6 +132,10 @@ class MapState:
     free_kf: List[int] = field(default_factory=list)  # recycled KF slots
     free_kf_pending: List[int] = field(default_factory=list)
     obs_drops: int = 0  # observations dropped on a full per-point table
+    # snapshots of slot ids that outlive a keyframe cycle, one token each
+    # (a global BA between its gather and its write-back): while any is
+    # out, recycle_free_slots keeps freed slots pending
+    recycle_holds: List[object] = field(default_factory=list)
 
     # Coarse mutation lock: tracking creates keyframes while the async
     # mapping worker mutates the same tables; both paths run at keyframe
@@ -724,7 +728,12 @@ class MapState:
         """Promote pending slots to allocatable. Called once per keyframe
         cycle: any stale reference (tracker frame match, async worker) from
         the previous cycle has been dropped by then, so a recycled slot can
-        no longer be bound through a dangling id."""
+        no longer be bound through a dangling id. A snapshot that outlives
+        the cycle (hold_recycling) keeps the slots pending until it is
+        released: a global BA's write-back must not land on a slot that a
+        new keyframe or point took while it solved."""
+        if self.recycle_holds:
+            return
         self.free_mp.extend(self.free_mp_pending)
         self.free_mp_pending = []
         if self.free_kf_pending:
@@ -737,6 +746,16 @@ class MapState:
             ]
             self.free_kf.extend(self.free_kf_pending)
             self.free_kf_pending = []
+
+    def hold_recycling(self) -> object:
+        """Keep freed slots pending until release_recycling(token) (no lock
+        taken: list.append and list.remove are atomic)."""
+        token = object()
+        self.recycle_holds.append(token)
+        return token
+
+    def release_recycling(self, token: object):
+        self.recycle_holds.remove(token)
 
     def grow(self, new_kf: Optional[int] = None,
              new_mp: Optional[int] = None):

@@ -52,13 +52,12 @@ def residuals(cam: Camera, S12, p1c, p2c, u1, u2, inv_s1, inv_s2):
 def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
                   valid, fix_scale: bool = False, th2: float = TH2,
                   iters1: int = ITERS1, iters2: int = ITERS2,
-                  mid_inliers=None, replay=None, trace=None) -> Sim3OptResult:
-    """To replay another run's decisions (a sum taken in another order may
-    put a pair's chi2 or a step's cost on the other side of a comparison):
+                  mid_inliers=None, decide=None) -> Sim3OptResult:
+    """For a check against another LM, whose sums run in another order:
     ``mid_inliers``, given, replaces the chi2 gate's inlier set between the
-    two phases, and ``replay``, given, each LM iteration's accept decision
-    (iters1 + iters2 of them, in order). ``trace``, a list, receives the
-    decisions taken."""
+    two phases, and ``decide``, given, a function (iteration, trial cost,
+    current cost) -> bool, takes the place of the accept test trial <
+    current (iterations counted over both phases)."""
     inv_s1 = 1.0 / torch.sqrt(sigma2_1.clamp_min(1e-9))
     inv_s2 = 1.0 / torch.sqrt(sigma2_2.clamp_min(1e-9))
     delta = th2 ** 0.5
@@ -108,11 +107,11 @@ def optimize_sim3(cam: Camera, S12_0, p1c, p2c, u1, u2, sigma2_1, sigma2_2,
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye7
             dx = -torch.linalg.solve(Hd, g)
             S_new = geo.sim3_compose(geo.sim3_exp(dx), S)
-            better = cost(S_new, maskf) < cost(S, maskf)
-            if replay is not None:
-                better = torch.tensor(bool(replay[first + it]), device=p1c.device)
-            if trace is not None:
-                trace.append(bool(better))
+            c_new, c_cur = cost(S_new, maskf), cost(S, maskf)
+            better = c_new < c_cur
+            if decide is not None:
+                better = torch.tensor(bool(decide(first + it, c_new, c_cur)),
+                                      device=p1c.device)
             S = torch.where(better, S_new, S)
             lam = torch.where(better, lam * 0.5, lam * 4.0).clamp(1e-6, 1e4)
         return S

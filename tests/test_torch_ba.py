@@ -173,6 +173,34 @@ def test_parity_invalid_landmarks():
     assert not rt.obs_inlier[torch.from_numpy(bad)].any()
 
 
+@pytest.mark.parametrize("huber", [True, False])
+def test_nan_trial_step_rejected_as_reference(huber):
+    """A trial step from a failed factorization (a NaN pose) gives a NaN
+    trial cost in both packages, with and without Huber, and the accept
+    step keeps the current state and raises lambda x4 (kernels G and H are
+    held to the same on the card)."""
+    from orbslam2_tpu_torch.kernels import ba_accept, ba_update_cost
+
+    arrays = _window(16, 1024, 44)
+    trial = arrays[0].copy()
+    trial[5] = np.nan
+    jprob = jba.BAProblem(*(jnp.asarray(a) for a in arrays))
+    valid_t = (jprob.obs_valid & (jprob.obs_kf >= 0) & jprob.point_valid[:, None]).T
+    cost_j, _ = jba._cost_t(JCamera.create(**CAM), jnp.asarray(trial), jprob.points,
+                            jba._transpose_obs(jprob), valid_t, huber)
+    tp = tba.BAProblem(*(torch.from_numpy(np.array(a)) for a in arrays))
+    _, cost_t, _ = ba_update_cost.ba_update_cost(
+        TCamera.create(**CAM), torch.from_numpy(trial), tp.points, tp.point_valid,
+        tp.obs_kf, tp.obs_uvr, tp.obs_sigma2, tp.obs_valid, tp.obs_valid, huber)
+    assert np.isnan(float(cost_j)) and torch.isnan(cost_t).all()
+    state = (cost_t, torch.from_numpy(trial), tp.points + 1.0,
+             torch.full((1,), 1e9), torch.full((1,), 1e-4), tp.poses.clone(),
+             tp.points.clone())
+    ba_accept.ba_accept(*state)
+    assert torch.equal(state[5], tp.poses) and torch.equal(state[6], tp.points)
+    assert state[3].item() == 1e9 and state[4].item() == pytest.approx(4e-4)
+
+
 @pytest.mark.parametrize("iters,rounds", [(1, 0), (8, 1)])
 def test_parity_forced_reject(iters, rounds):
     """A start so far off (0.3 rad / 0.3 m poses, 1 m points) that the

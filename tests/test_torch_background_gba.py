@@ -118,3 +118,31 @@ def test_gba_failure_is_kept_for_the_caller(rng, monkeypatch):
     lc.launch_global_ba_background()
     assert lc.wait_global_ba(timeout=60.0)
     assert isinstance(lc.gba_error, ValueError)
+
+
+def test_slots_freed_during_gba_wait_for_its_write_back(rng):
+    """A point culled while global BA solves (by the mapping worker, which
+    recycles freed slots once a keyframe cycle) stays pending until the
+    write-back has run, so that the write-back cannot land on the slot of a
+    new point; then the next cycle frees it. The reference recycles it at
+    the next cycle, mid-solve (a named divergence)."""
+    lc = _closer(rng)
+    m = lc.map
+    solve = lc._gba_solve
+    seen = {}
+
+    def solve_while_mapping(prob, iters):
+        with m.lock:
+            mp = int(m.valid_map_points()[0])
+            m.remove_map_point(mp)
+            m.recycle_free_slots()
+            seen.update(mp=mp, free=mp in m.free_mp, holds=len(m.recycle_holds))
+        return solve(prob, iters)
+
+    lc._gba_solve = solve_while_mapping
+    lc.global_bundle_adjustment()
+    assert seen["holds"] == 1 and not seen["free"]
+    assert not m.recycle_holds and not m.mp_valid[seen["mp"]]
+    with m.lock:
+        m.recycle_free_slots()
+    assert seen["mp"] in m.free_mp

@@ -179,6 +179,26 @@ def test_ba_steps_match_plain(cuda, K, M, iters):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("huber", [True, False])
+def test_ba_nan_trial_cost_matches_plain(cuda, huber):
+    """Kernel G on a trial pose set with a NaN camera (a failed
+    factorization's step): a NaN cost, as the plain version's, so that
+    kernel H rejects the step."""
+    prob = _ba_problem(cuda, 16, 1024)
+    trial = prob.poses.clone()
+    trial[5] = float("nan")
+    obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+    args = (BA_CAM, trial, prob.points, *obs, prob.obs_valid, prob.obs_valid, huber)
+    ck = ba_update_cost.ba_update_cost(*args)[1]
+    cp = ba_update_cost.ba_update_cost_plain(*args)[1]
+    assert torch.isnan(ck).all() and torch.isnan(cp).all()
+    state = (ck, trial, prob.points, torch.full((1,), 1e9, device=cuda),
+             torch.full((1,), 1e-4, device=cuda), prob.poses.clone(),
+             prob.points.clone())
+    ba_accept.ba_accept(*state)
+    assert torch.equal(state[5], prob.poses) and state[3].item() == 1e9
+
+
 @pytest.mark.parametrize("K,M,iters", BA_SHAPES)
 def test_optimize_ba_matches_plain(cuda, K, M, iters):
     """The whole schedule through kernels E-H against the plain schedule on

@@ -16,7 +16,10 @@ Phases, each printing one line:
      alone on the device (torch.profiler's device events; a profile that
      missed launches is taken again, and if all three do, the mean of the
      recorded launches counts), and computes its bound from the run's
-     inputs. Then: the tracking cascade (kernels O, C, Q, D, R) against the
+     inputs. Kernel D again with one valid map point NaN and one behind
+     the camera: chi2 NaN and 1e9 as its plain version's (the reference's
+     jnp.maximum / jnp.minimum keep a NaN), pose and inliers as plain.
+     Then: the tracking cascade (kernels O, C, Q, D, R) against the
      plain cascade, from a prediction the first pass tracks and from one
      only the device-side retry tracks, and, by profiler, that one frame's
      cascade runs no device work but its kernels, memsets and the
@@ -124,7 +127,28 @@ Phases, each printing one line:
      as in phase 7: within 1e-4 of the plain LM, which takes the kernel's
      inlier gate between the two phases and its accept decision only
      where its two costs tie within their float32 rounding bound
-     (sim3_lm_check).
+     (sim3_lm_check);
+ 10. the offline and dataset surfaces: (b) the vocabulary asset tool's
+     corpus (tools/train_default_vocab.py: 296 images at 640x480, 1500
+     features, 8 levels; cut to its first 64 images, and said so, where
+     the render would take the phase past 180 s) trained to W = 65536
+     words in 4 iterations on kernels Y (words only) and Y', then IDF,
+     seconds by stage, the words seen in training, the counts set to 0
+     just before the training and read just after (exactly PATHS["vocab"]),
+     the centres and IDF bit-exact against the plain trainer on the card;
+     (c) run_slam tum-rgbd in a subprocess on phase 4's 36 frames written
+     as a TUM directory (8-bit PNGs by the standard library's zlib, read
+     back through the native decoder, built first): 36 frames, TUM-format
+     trajectories, ATE against the written ground truth < 0.10 m (the
+     reference dry run's bound; 8-bit images track worse than the float
+     renders' 0.035 m), recorded; (d) run_slam kitti-stereo on phase 6's
+     30 pairs in the KITTI layout: 30 frames, a KITTI-format trajectory;
+     (e) eval_datasets --dry-run: ok, ATE < 0.10 m, >= 20 associated; (f)
+     the HTTP viewer on phase 4's system: /state.json's counts equal the
+     map's; (a) Y and Y' against their plain versions at W = 65536 and the
+     corpus's N on the first iteration's arguments, bit-exact; a "surfaces"
+     line. Kernel Y's row at training shape is its own row
+     ("bow_words_training", its launches the training's).
 Phase 3 also holds the BA schedule at the largest global-BA bucket (K=256,
 M=32768, O=8, kernel F' solving), F' beside the library's Cholesky solve
 at 6K=1536, P on a drifted 384-keyframe ring against its plain version,
@@ -197,13 +221,22 @@ PATHS = {
 # exactly these: the asynchronous RGB-D run and circuit (phase 9), the
 # circuit's kernels and the pose chain of pipelined tracking
 PATHS["async"] = PATHS["loop"] + ("pose_chain",)
+# exactly these: vocabulary training on the asset tool's corpus (phase 10)
+PATHS["vocab"] = ("bow_words", "vocab_update")
+# the surfaces phase: the runners feed 8-bit PNGs, which track worse than
+# the float renders (ROADMAP queue 3), so they are held to the reference
+# dry run's bound, their ATE recorded beside the float renders' 0.035 m
+SURFACE_ATE = 0.10
+DRY_RUN_ASSOC = 20        # tests/test_eval_harness.py's n_assoc bound
+VOCAB_PHASE_S = 180.0     # past this the corpus is cut to its first images
+VOCAB_CUT = 64            # 64 x ~1500 descriptors >= W = 65536
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
-# operations/s outside the tensor cores; every kernel here is float32 or
-# integer work on the CUDA cores
+# operations/s outside the tensor cores, where every kernel here runs; Y's
+# Hamming product, exact on the int8 tensor cores, is bounded at their rate
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 PEAK_F64 = 34e12       # float64 outside the tensor cores
-POPC_PER_SM_CLOCK = 16  # __popc per SM per clock, compute capability 9.0
+PEAK_INT8 = 1979e12    # int8 on the tensor cores, dense
 
 
 def bound(n_bytes, n_ops):
@@ -212,11 +245,33 @@ def bound(n_bytes, n_ops):
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return 1e6 * float(out.stdout.strip().splitlines()[0])
+def hamming_bound(n_rows, n_words, n_bytes):
+    """bound() of kernel Y's work: the Hamming distances of n_rows
+    descriptors to n_words centres are a {0,1} product of depth 256, exact
+    on the int8 tensor cores (2 operations a multiply-add), and the argmin
+    compares one value a pair on the CUDA cores, concurrently; the slower
+    of the two against the bytes."""
+    t_o = max(2 * 256 * n_rows * n_words / PEAK_INT8, n_rows * n_words / PEAK_OPS)
+    t_b = n_bytes / PEAK_BYTES
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def hamming_library(desc, vocab, rows=16384):
+    """A function of PyTorch calls that gives kernel Y's words: the unpacked
+    bits as float16 (every value an integer <= 512, exact), nv - 2 a.v by
+    one addmm on the tensor cores, and its argmin (first index on ties), in
+    chunks of ``rows`` rows; na + nv - 2 a.v, the reference's distance, has
+    the same argmin."""
+    from orbslam2_tpu_torch.ops import matching
+
+    a = matching.unpack_bits(desc).half()
+    v = matching.unpack_bits(vocab).half()
+    nv = v.sum(1)[None]
+
+    def words():
+        return torch.cat([torch.addmm(nv, a[s:s + rows], v.T, alpha=-2.0).argmin(1)
+                          for s in range(0, a.shape[0], rows)])
+    return words
 
 
 def card_line() -> str:
@@ -240,6 +295,26 @@ def cuda_ms(fn, reps=20, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def batch_ms(fn, calls, rounds=3):
+    """Device ms per call of ``fn`` while the card never waits on the host:
+    CUDA events around ``calls`` back-to-back calls, the median of
+    ``rounds``. For calls whose device time (milliseconds) covers the next
+    call's host work (tens of microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -334,6 +409,38 @@ def describe_footprint(xy, angle, width, height):
 
     xy = xy.long()
     return distinct(xy[:, None] + circle) + distinct(xy[:, None] + tests.long())
+
+
+def pose_lm_nan_check(dev, d_args, valid):
+    """Kernel D on phase 3's pose problem with one valid map point NaN and
+    one behind the camera, against its plain version: the NaN point's chi2
+    NaN in both (the reference's jnp.maximum / jnp.minimum keep it), the
+    point behind at 1e9, the pose within 1e-4, inlier flags within 0.5% of
+    the valid edges, chi2 within 1e-3 relative."""
+    from orbslam2_tpu_torch.kernels import pose_lm
+
+    pts = d_args[2].clone()
+    nan_i, behind_i = np.where(valid)[0][:2]
+    pts[nan_i] = float("nan")
+    pts[behind_i, 2] = -3.0
+    args = d_args[:2] + (pts,) + d_args[3:]
+    Tk, ik, nk, ck = pose_lm.pose_lm(*args)
+    Tp, ip, n_p, cp = pose_lm.pose_lm_plain(*args)
+    err = (Tk - Tp).abs().max().item()
+    flips = int((ik != ip).sum())
+    check(bool(torch.isnan(ck[nan_i])) and bool(torch.isnan(cp[nan_i])),
+          f"kernel D on a NaN point: chi2 {ck[nan_i].item()}, plain {cp[nan_i].item()}")
+    check(ck[behind_i].item() == cp[behind_i].item() == np.float32(1e9),
+          f"kernel D on a point behind: chi2 {ck[behind_i].item()}, plain "
+          f"{cp[behind_i].item()}")
+    check(torch.equal(torch.isnan(ck), torch.isnan(cp))
+          and torch.allclose(ck, cp, rtol=1e-3, atol=1e-3, equal_nan=True),
+          "kernel D chi2 differs from the plain version's on the NaN case")
+    check(err <= 1e-4 and flips <= 0.005 * valid.sum(),
+          f"kernel D on the NaN case: pose {err}, inlier flips {flips}")
+    print(f"kernel pose_lm: NaN point and point behind: chi2 NaN / 1e9 as "
+          f"plain, pose max diff {err:.2e}, inliers {int(nk)} vs {int(n_p)}, "
+          f"flags differ at {flips}")
 
 
 MP_KEYS = ("pos", "desc", "valid", "normal", "dmin", "dmax")
@@ -1167,7 +1274,8 @@ def stereo_path(dev):
     """The KITTI-width stereo run (slices.config("stereo"), 30 frames):
     tracked >= frames - 1, ATE < 0.045 m, a share of keyframe features with
     u_right >= 0 above 0.3, >= 3 keyframes, V and W on every frame. Returns
-    (slam, counts, frames, V's and W's arguments on the last frame)."""
+    (slam, counts, frames, their poses, V's and W's arguments on the last
+    frame)."""
     from orbslam2_tpu_torch.kernels import stereo_match, stereo_sad
     from orbslam2_tpu_torch.utils import slices
     from orbslam2_tpu_torch.utils.evaluation import ate_rmse
@@ -1193,7 +1301,7 @@ def stereo_path(dev):
     for name in ("stereo_match", "stereo_sad"):
         check(counts[name] == len(frames),
               f"{name} launched {counts[name]} times in {len(frames)} frames")
-    return slam, counts, frames, cv.args, cw.args
+    return slam, counts, frames, poses, cv.args, cw.args
 
 
 def mono_path(dev):
@@ -1402,25 +1510,18 @@ def reloc_rows(dev, record, y_args, u_args, z_args):
     desc, valid, vocab = ya[:3]
     idf = ya[3] if len(ya) > 3 else ykw.get("idf")
     n_valid, Wn = int(valid.sum()), vocab.shape[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = max_sm_clock_hz()
     y_bytes = nbytes(desc, valid, vocab) + (0 if idf is None else nbytes(idf)) \
         + 4 * desc.shape[0] + 4 * Wn
-    t_pop = n_valid * Wn * 8 / (POPC_PER_SM_CLOCK * sms * clock)
-    t_byt = y_bytes / PEAK_BYTES
-    a_bits = matching.unpack_bits(desc[valid]).float()
-    v_bits = matching.unpack_bits(vocab).float()
-    na, nv = a_bits.sum(1, keepdim=True), v_bits.sum(1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lib_y = cuda_ms(lambda: (na + nv - 2.0 * (a_bits @ v_bits.T)).argmin(1))
+    library_y = hamming_library(desc[valid], vocab)
+    check(torch.equal(library_y().int(), wp[valid]), "the library's words differ")
     record(bow_words, rel_y, lambda: bow_words.bow_words(*ya, **ykw),
            cuda_ms(lambda: bow_words.bow_words_plain(*ya, **ykw)),
            f"N={desc.shape[0]} ({n_valid} valid) x W={Wn}: words bit-exact, vector "
-           f"within {rel_y:.2e} relative; bound: {n_valid} x {Wn} x 8 popcounts at "
-           f"{POPC_PER_SM_CLOCK}/clock/SM x {sms} SMs x {clock / 1e9:.3f} GHz; library: "
-           f"the reference's (N, 256) x (256, W) float product of the bits + argmin",
-           n_bytes=y_bytes, n_ops=0, library_ms=lib_y, per_call=2,
-           bound_override=(1e3 * max(t_pop, t_byt), "operations" if t_pop >= t_byt else "bytes"))
+           f"within {rel_y:.2e} relative; bound: the {n_valid} x {Wn} x 256 bit "
+           f"product on the int8 tensor cores; library: the float16 product of "
+           f"the bits (one addmm) + argmin",
+           n_bytes=y_bytes, n_ops=0, library_ms=cuda_ms(library_y), per_call=2,
+           bound_override=hamming_bound(n_valid, Wn, y_bytes))
 
     # U without the rotation check: idx, dist, valid bit-exact
     ua, ukw = u_args
@@ -2887,6 +2988,266 @@ def scale_rows(dev, record, args, fields):
           f"{fields['windows_bound_ms']:.4f} ms in all")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: vocabulary training and the dataset surfaces
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+Y_TRAINING = "bow_words_training"   # kernel Y's row at training shape
+
+
+def vocab_path(dev):
+    """(b) the asset tool's corpus (tools/train_default_vocab.py: 12 rooms x
+    14 views and 8 corridors x 16 views at 640x480, 1500 features, 8
+    levels) rendered, extracted on the card, trained to W = 65536 words in 4
+    iterations on kernels Y and Y' with IDF; the counts set to 0 just before
+    the training and read just after; then the plain trainer on the card
+    on the same descriptors: centres and IDF bit-exact. If the render's
+    projected time would take the phase past VOCAB_PHASE_S, the corpus is
+    cut to its first VOCAB_CUT images, and the line says so. Returns
+    (counts, the first iteration's arguments, fields)."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.device import upload
+    from orbslam2_tpu_torch.ops import bow
+    from orbslam2_tpu_torch.tools import train_default_vocab as tool
+
+    t_phase = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    todo = tool.scenes()
+    t0 = time.perf_counter()
+    images = tool.render_scene(todo[0])
+    t_first = time.perf_counter() - t0
+    projected = t_first * (1 + (len(todo) - 1) / workers)
+    cut = projected > VOCAB_PHASE_S / 2
+    if cut:
+        need = -(-(VOCAB_CUT - len(images)) // tool.CORRIDOR_VIEWS)
+        images = (images + tool.render_scenes(todo[1:1 + need], workers))[:VOCAB_CUT]
+    else:
+        images = images + tool.render_scenes(todo[1:], workers)
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    desc, valid, docs = tool.extract_corpus(images, dev)
+    extract_s = time.perf_counter() - t0
+    n_desc = int(valid.sum())
+    check(n_desc >= bow.VOCAB_SIZE, f"vocab: {n_desc} descriptors < W")
+    timings = []
+    kernels.reset_launches()
+    bits, idf = tool.train(desc, valid, docs, device=dev, timings=timings)
+    counts = kernels.launch_counts()
+    t0 = time.perf_counter()
+    bits_p, idf_p = tool.train(desc, valid, docs, device=dev, plain=True)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(bits, bits_p), "vocab: the trained centres differ from "
+          f"the plain trainer's at {int((bits != bits_p).sum())} bits")
+    check(np.array_equal(idf, idf_p), "vocab: IDF differs from the plain trainer's")
+    seen = int((idf < np.log(len(images))).sum())
+    # the first iteration's arguments: the packed descriptors, the
+    # reference's start and its words
+    d = desc.reshape(-1, 32)[valid.reshape(-1)]
+    rng = np.random.default_rng(7)
+    d_dev = upload(d, dev)
+    start = upload(d[rng.choice(len(d), bow.VOCAB_SIZE, replace=False)], dev)
+    words = bow.assign_packed(d_dev, start, plain=True)
+    fields = dict(
+        images=len(images), cut_to_first=VOCAB_CUT if cut else None,
+        render_workers=workers, descriptors=n_desc, words=bow.VOCAB_SIZE,
+        words_seen=seen, idf_range=[float(idf.min()), float(idf.max())],
+        render_s=render_s, extract_s=extract_s,
+        assign_ms=[t for name, _, t in timings if name == "assign"],
+        update_ms=[t for name, _, t in timings if name == "update"],
+        idf_ms=[t for name, _, t in timings if name == "idf"][0],
+        plain_trainer_s=plain_s, centres_vs_plain="bit-exact",
+        vocab_launches={k: v for k, v in counts.items() if v})
+    fields["vocab_phase_s"] = time.perf_counter() - t_phase
+    print(f"vocab: {len(images)} images{' (cut: the render would take the phase past %.0f s)' % VOCAB_PHASE_S if cut else ''}, "
+          f"{n_desc} descriptors -> {bow.VOCAB_SIZE} words, {seen} seen in training; "
+          f"render {render_s:.2f} s ({workers} processes), extraction {extract_s:.2f} s, "
+          f"assign {', '.join(f'{t:.2f}' for t in fields['assign_ms'])} ms, update "
+          f"{', '.join(f'{t:.2f}' for t in fields['update_ms'])} ms, IDF "
+          f"{fields['idf_ms']:.2f} ms; the plain trainer on the card {plain_s:.2f} s, "
+          f"centres and IDF bit-exact; launches {fields['vocab_launches']}")
+    return counts, (d_dev, start, words), fields
+
+
+def vocab_rows(dev, record, args, fields):
+    """(a) kernels Y (words only) and Y' against their plain versions at W =
+    65536 and the corpus's N, on the first training iteration's arguments:
+    words, counts, sums and centres bit-exact; their rows."""
+    from orbslam2_tpu_torch.kernels import bow_words, vocab_update
+    from orbslam2_tpu_torch.ops import matching
+
+    d, start, words_p = args
+    N, Wn = d.shape[0], start.shape[0]
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    words_k = bow_words.bow_words(d, valid, start, vector=False)[0]
+    check(torch.equal(words_k, words_p), "kernel Y at training shape: words "
+          f"differ at {int((words_k != words_p).sum())} of {N}")
+    y_bytes = nbytes(d, valid, start) + (8 + 8 + 4) * N
+    library_y = hamming_library(d, start)
+    check(torch.equal(library_y().int(), words_p), "the library's words differ")
+    row = record(bow_words, 0.0,
+                 lambda: bow_words.bow_words(d, valid, start, vector=False),
+                 cuda_ms(lambda: bow_words.bow_words_plain(d, valid, start,
+                                                           vector=False), reps=2, warmup=1),
+                 f"training shape N={N} x W={Wn}, words only: bit-exact; bound: "
+                 f"the {N} x {Wn} x 256 bit product on the int8 tensor cores; "
+                 f"library: the float16 product of the bits (one addmm) + argmin "
+                 f"in chunks of 16384 rows",
+                 n_bytes=y_bytes, n_ops=0,
+                 library_ms=cuda_ms(library_y, reps=2, warmup=1), per_call=2,
+                 bound_override=hamming_bound(N, Wn, y_bytes), reps=3, batched=True)
+    row.update(name=Y_TRAINING, replaces="orbslam2_tpu/ops/bow.py:135")
+    del library_y
+
+    ck, sk, nk = vocab_update.vocab_update(d, words_p, start)
+    cp, sp, np_ = vocab_update.vocab_update_plain(d, words_p, start)
+    check(torch.equal(ck, cp) and torch.equal(sk, sp) and torch.equal(nk, np_),
+          "kernel Y' not bit-exact: counts "
+          f"{int((ck != cp).sum())}, sums {int((sk != sp).sum())}, centres "
+          f"{int((nk != np_).sum())} differ")
+    n_empty = int((ck == 0).sum())
+    bits_f = matching.unpack_bits(d).float()
+    idx = words_p.long()
+
+    def library_u():
+        sums = torch.zeros((Wn, 256), device=dev).index_add_(0, idx, bits_f)
+        cnt = torch.zeros(Wn, device=dev).index_add_(
+            0, idx, torch.ones(N, device=dev))
+        vote = sums / cnt.clamp_min(1.0)[:, None] > 0.5
+        return torch.where((cnt > 0)[:, None], vote, matching.unpack_bits(start).bool())
+
+    check(torch.equal(library_u(), matching.unpack_bits(nk).bool()),
+          "the library's vote differs")
+    record(vocab_update, 0.0, lambda: vocab_update.vocab_update(d, words_p, start),
+           cuda_ms(lambda: vocab_update.vocab_update_plain(d, words_p, start),
+                   reps=3, warmup=1),
+           f"N={N} x W={Wn} ({n_empty} empty words): counts, sums and centres "
+           f"bit-exact; library: index_add_ of the unpacked float bits and the "
+           f"counts + the vote",
+           # read once: the packed descriptors, their words and the old
+           # centres; written once: counts, sums and the new centres
+           n_bytes=nbytes(d, words_p, start, ck, sk, nk),
+           n_ops=N * 256 + Wn * 256 * 2,
+           library_ms=cuda_ms(library_u, reps=3, warmup=1), per_call=2, reps=5,
+           batched=True)
+    fields["first_iteration_empty_words"] = n_empty
+
+
+def run_cli(module, *args, timeout=600):
+    """``python -m module args`` from the checkout's root; its stdout, or a
+    failure with the end of its stderr."""
+    proc = subprocess.run([sys.executable, "-m", module] + [str(a) for a in args],
+                          capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    check(proc.returncode == 0,
+          f"{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def surfaces_path(slam, frames, poses, pairs, pair_poses):
+    """(c) run_slam tum-rgbd on phase 4's 36 RGB-D frames written as a TUM
+    directory (8-bit PNGs, 16-bit depth), (d) run_slam kitti-stereo on
+    phase 6's 30 pairs in the KITTI layout, (e) eval_datasets --dry-run,
+    each a subprocess on the card; the PNGs written with the standard
+    library and read back through the native decoder, built first; (f) the
+    HTTP viewer on phase 4's system, /state.json once. Returns fields."""
+    import importlib.util
+    import tempfile
+    import urllib.request
+
+    from orbslam2_tpu_torch.utils import datasets, evaluation, native_io
+    from orbslam2_tpu_torch.utils.http_viewer import HttpViewer
+
+    fields = {"PIL": importlib.util.find_spec("PIL") is not None,
+              "matplotlib": importlib.util.find_spec("matplotlib") is not None}
+    t0 = time.perf_counter()
+    check(native_io.native_available(),
+          f"the native decoder did not build: {native_io.build_error}")
+    fields["native_build_s"] = time.perf_counter() - t0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # (c) TUM RGB-D
+        t0 = time.perf_counter()
+        tum = os.path.join(tmp, "tum")
+        datasets.write_tum_rgbd(tum, frames, poses)
+        img0 = native_io.load_image(os.path.join(tum, "rgb", os.listdir(
+            os.path.join(tum, "rgb"))[0]))
+        check(img0.shape == (H, W), f"decoded {img0.shape}")
+        settings = os.path.join(tum, "settings.yaml")
+        with open(settings, "w") as f:
+            f.write(datasets.settings_yaml(FX, FX, W / 2, H / 2, W, H, 52.0, 1000, 8))
+        traj, kf_traj = os.path.join(tmp, "tum_traj.txt"), os.path.join(tmp, "tum_kf.txt")
+        out = run_cli("orbslam2_tpu_torch.examples.run_slam", "tum-rgbd", settings,
+                      tum, "--traj-out", traj, "--kf-traj-out", kf_traj)
+        check(f"frames: {len(frames)}" in out, f"run_slam tum-rgbd: {out[-500:]}")
+        lines = open(traj).read().split("\n")[:-1]
+        check(all(len(ln.split()) == 8 for ln in lines), "not a TUM trajectory")
+        check(len(open(kf_traj).read().split("\n")) > 1, "no keyframe trajectory")
+        t_est, xyz_est = evaluation.load_tum_trajectory(traj)
+        t_gt, xyz_gt = evaluation.load_tum_groundtruth(os.path.join(tum, "groundtruth.txt"))
+        ia, ib = evaluation.associate_trajectories(t_est, t_gt)
+        ate = evaluation.ate_rmse(xyz_est[ia], xyz_gt[ib], with_scale=False)
+        check(ate < SURFACE_ATE, f"run_slam tum-rgbd ATE {ate} >= {SURFACE_ATE}")
+        fields["tum_rgbd"] = dict(frames=len(frames), tracked=len(lines),
+                                  n_assoc=len(ia), ate_m=ate,
+                                  float_render_bound_m=ATE_BOUND,
+                                  median_ms=float(out.split("median tracking time:")[1]
+                                                  .split("ms")[0]),
+                                  s=time.perf_counter() - t0)
+        # (d) KITTI stereo
+        t0 = time.perf_counter()
+        kitti = os.path.join(tmp, "kitti")
+        datasets.write_kitti(kitti, pairs)
+        traj = os.path.join(tmp, "kitti_traj.txt")
+        out = run_cli("orbslam2_tpu_torch.examples.run_slam", "kitti-stereo",
+                      os.path.join(ROOT, "examples", "settings", "KITTI00-02.yaml"),
+                      kitti, "--traj-out", traj, "--kf-traj-out",
+                      os.path.join(tmp, "kitti_kf.txt"))
+        check(f"frames: {len(pairs)}" in out, f"run_slam kitti-stereo: {out[-500:]}")
+        rows = np.loadtxt(traj, ndmin=2)
+        check(rows.shape[0] >= 1 and rows.shape[1] == 12, "not a KITTI trajectory")
+        kitti_ate = None
+        if rows.shape[0] == len(pairs):
+            gt = np.stack([np.linalg.inv(T)[:3, 3] for T in pair_poses])
+            kitti_ate = evaluation.ate_rmse(rows[:, [3, 7, 11]], gt, with_scale=False)
+        fields["kitti_stereo"] = dict(frames=len(pairs), tracked=int(rows.shape[0]),
+                                      ate_m=kitti_ate, float_render_bound_m=STEREO_ATE,
+                                      median_ms=float(out.split("median tracking time:")[1]
+                                                      .split("ms")[0]),
+                                      s=time.perf_counter() - t0)
+        # (e) the evaluation harness's dry run
+        t0 = time.perf_counter()
+        report = os.path.join(tmp, "eval.json")
+        run_cli("orbslam2_tpu_torch.examples.eval_datasets", "--dry-run", "--out", report)
+        with open(report) as f:
+            res = json.load(f)["results"][0]
+        check(res["ok"] and res["ate_rmse"] < SURFACE_ATE
+              and res["n_assoc"] >= DRY_RUN_ASSOC, f"dry run: {res}")
+        fields["dry_run"] = dict(ok=res["ok"], ate_m=res["ate_rmse"],
+                                 n_assoc=res["n_assoc"], frames=res["frames"],
+                                 fps=res["fps"], s=time.perf_counter() - t0)
+    # (f) the HTTP viewer on phase 4's system
+    viewer = HttpViewer(slam, port=0, interval=0.0)
+    try:
+        st = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{viewer.port}/state.json", timeout=30).read())
+    finally:
+        viewer.stop()
+    want = dict(n_keyframes=len(slam.map.valid_keyframes()),
+                n_map_points=len(slam.map.valid_map_points()),
+                n_frames=len(slam.tracker.trajectory))
+    got = {k: st[k] for k in want}
+    check(got == want, f"viewer state {got} against the map's {want}")
+    fields["viewer"] = got
+    print(f"surfaces: run_slam tum-rgbd {fields['tum_rgbd']['tracked']} of "
+          f"{len(frames)} tracked, ATE {fields['tum_rgbd']['ate_m']:.5f} m (8-bit "
+          f"PNGs; bound {SURFACE_ATE}, float renders {ATE_BOUND}); kitti-stereo "
+          f"{fields['kitti_stereo']['tracked']} of {len(pairs)}, ATE "
+          f"{fields['kitti_stereo']['ate_m']}; dry run ok, ATE "
+          f"{res['ate_rmse']:.5f} m, {res['n_assoc']} associated; viewer {got}; "
+          f"PIL {fields['PIL']}, matplotlib {fields['matplotlib']}")
+    return fields
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2929,7 +3290,8 @@ def main():
     rows = []
 
     def record(mod, err, fn, plain_ms, note, n_bytes, n_ops, library_ms=None,
-               per_call=1, bound_override=None, function="", reps=20):
+               per_call=1, bound_override=None, function="", reps=20,
+               batched=False):
         """One kernel's row: ms is one call of ``fn`` between CUDA events
         (host work included; ``per_call`` launches, e.g. every pyramid
         level), device_ms the kernel's own device time per call, plain_ms
@@ -2938,21 +3300,33 @@ def main():
         bound(n_bytes, n_ops), or ``bound_override`` (ms, by) where the work
         runs at another peak. ``function=None`` takes every device event
         of the call (a kernel that runs another's launches); ``reps`` calls
-        are timed each way (fewer for a call of seconds). Returns the row."""
+        are timed each way (fewer for a call of seconds). ``batched`` rows
+        (phase 10's: the profiler recorded none of Y's launches at training
+        shape in 4 of 5 runs) take device_ms from batch_ms over ``reps`` calls instead of the
+        profiler; the row's ``device_ms_by`` says which. Returns the
+        row."""
         ms = cuda_ms(fn, reps=reps, warmup=min(3, reps))
-        dev_ms = device_ms(fn, mod.FUNCTION if function == "" else function,
-                           reps=reps, per_call=per_call)
+        if batched:
+            dev_ms = batch_ms(fn, reps)
+            by = f"CUDA events around {reps} back-to-back calls"
+        else:
+            dev_ms = device_ms(fn, mod.FUNCTION if function == "" else function,
+                               reps=reps, per_call=per_call)
+            by = "torch.profiler"
         bound_ms, bound_by = bound_override or bound(n_bytes, n_ops)
-        seen, launched = profile_gaps.pop(mod.FUNCTION, (reps * per_call,) * 2)
+        seen, launched = ((None, None) if batched else
+                          profile_gaps.pop(mod.FUNCTION, (reps * per_call,) * 2))
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
-                         ms=ms, device_ms=dev_ms,
-                         device_events=f"{seen} of {launched}",
+                         ms=ms, device_ms=dev_ms, device_ms_by=by,
+                         device_events=None if batched else f"{seen} of {launched}",
                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms))
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         part = ("" if seen == launched else
                 f", from a profile that recorded {seen} of {launched} launches")
+        if batched:
+            part = f", {by}"
         print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
               f"{dev_ms:.4f} ms{part}) vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound_ms:.6f} ms ({bound_by})")
@@ -3085,6 +3459,7 @@ def main():
            # all edges (~40)
            n_bytes=64 + Pd * (12 + 12 + 4 + 1) + 64 + 4 + Pd * (1 + 4),
            n_ops=4 * 10 * n_val * (90 + 160 + 40) + 4 * Pd * 40)
+    pose_lm_nan_check(dev, d_args, valid)
 
     cascade_rows(dev, record, cam, local_map, feats, d_kp, T_pred)
     bnd = {r["name"]: r["bound_ms"] for r in rows}
@@ -3145,7 +3520,7 @@ def main():
     path_counts["reloc"], y_args, ur_args, z_args = reloc_path(dev, slam, frames, poses)
 
     # ---- phase 6: the stereo, fallback and monocular paths -----------------
-    slam_s, path_counts["stereo"], pairs, v_args, w_args = stereo_path(dev)
+    slam_s, path_counts["stereo"], pairs, pair_poses, v_args, w_args = stereo_path(dev)
     path_counts["fallback"], u_args, _ = fallback_path(dev, slam_s, pairs[-1])
     path_counts["mono"], uw_args, x_args = mono_path(dev)
 
@@ -3159,11 +3534,15 @@ def main():
     # ---- phase 9: the asynchronous system ------------------------------------
     path_counts["async"] = async_path(dev, record, frames, poses,
                                       len(times) / sum(times))
+
+    # ---- phase 10: the offline and dataset surfaces ----------------------------
+    path_counts["vocab"], vocab_args, vocab_fields = vocab_path(dev)
+    vocab_fields.update(surfaces_path(slam, frames, poses, pairs, pair_poses))
     for path, names in PATHS.items():
         for name in names:
             check(path_counts[path][name] > 0,
                   f"kernel {name} never launched on the {path} path")
-    for path in ("loop", "scale", "async"):
+    for path in ("loop", "scale", "async", "vocab"):
         launched = {k for k, v in path_counts[path].items() if v > 0}
         check(launched == set(PATHS[path]),
               f"the {path} path launched {sorted(launched ^ set(PATHS[path]))} "
@@ -3172,6 +3551,8 @@ def main():
     port_rows(dev, record, u_args, uw_args, v_args, w_args, x_args)
     reloc_rows(dev, record, y_args, ur_args, z_args)
     loop_rows(dev, record, loop_args)
+    vocab_rows(dev, record, vocab_args, vocab_fields)
+    print("surfaces " + json.dumps(vocab_fields))
     t_rows = time.perf_counter()
     scale_rows(dev, record, scale_args, scale_fields)
     scale_fields["rows_s"] = time.perf_counter() - t_rows
@@ -3179,12 +3560,16 @@ def main():
     print(f"device times of U, V, W, X, Y, Z, K, M, P, P': profiles that missed "
           f"launches (kernel, events, launches): "
           f"{profile_retries[n_retries:] or 'none'}")
-    total = {mod.NAME: sum(c[mod.NAME] for c in path_counts.values())
+    # Y's training launches go to its row at training shape
+    total = {mod.NAME: sum(c[mod.NAME] for p, c in path_counts.items()
+                           if p != "vocab" or mod.NAME != "bow_words")
              for mod in kernels.KERNELS}
     for name, n in total.items():
         check(n > 0, f"kernel {name} launched on no path")
+    total[Y_TRAINING] = path_counts["vocab"]["bow_words"]
     check(sorted(r["name"] for r in rows) == sorted(total),
-          "the kernels line does not hold every kernel once")
+          "the kernels line does not hold every kernel once (and Y at "
+          "training shape)")
     for row in rows:
         row["launches"] = total[row["name"]]
 

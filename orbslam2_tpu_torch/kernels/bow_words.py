@@ -28,6 +28,7 @@ REPLACES = "orbslam2_tpu/ops/bow.py:234"
 launches = 0
 
 _ROWS = 256  # descriptors a chunk of the plain version's distance matrix
+MAX_ROWS = 1 << 19  # descriptors a launch (training corpora: ~444k)
 _unpacked = None  # (vocab, its float bits (W, 256), their row sums)
 _unpacked_lock = threading.Lock()
 
@@ -43,13 +44,13 @@ def _vocab_bits(vocab: torch.Tensor):
         return _unpacked[1], _unpacked[2]
 
 
-def bow_words_plain(desc, valid, vocab, idf=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(words (N,) int32, -1 outside ``valid``; the vector (W,) float32):
-    the reference's formulation, Hamming distances as |a| + |b| - 2 a.b of
-    the unpacked bits in float32 (exact below 2^24; a row's |a| moves none
-    of its argmins and is left out), argmin with the first word on ties,
-    chunked over the rows."""
+def bow_words_plain(desc, valid, vocab, idf=None, vector: bool = True
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(words (N,) int32, -1 outside ``valid``; the vector (W,) float32,
+    None with ``vector=False``): the reference's formulation, Hamming
+    distances as |a| + |b| - 2 a.b of the unpacked bits in float32 (exact
+    below 2^24; a row's |a| moves none of its argmins and is left out),
+    argmin with the first word on ties, chunked over the rows."""
     vb, vsum = _vocab_bits(vocab)
     N, W = desc.shape[0], vocab.shape[0]
     words = torch.full((N,), -1, dtype=torch.int32, device=desc.device)
@@ -58,6 +59,8 @@ def bow_words_plain(desc, valid, vocab, idf=None
         r = rows[s:s + _ROWS]
         b = matching.unpack_bits(desc[r]).float()
         words[r] = torch.addmm(vsum, b, vb.T, alpha=-2.0).argmin(1).to(torch.int32)
+    if not vector:
+        return words, None
     tf = torch.zeros(W, dtype=torch.float32, device=desc.device)
     tf.index_add_(0, words[rows].long(),
                   torch.ones(rows.numel(), dtype=torch.float32, device=desc.device))
@@ -66,14 +69,17 @@ def bow_words_plain(desc, valid, vocab, idf=None
     return words, tf / torch.clamp_min(tf.sum(), 1e-9)
 
 
-def bow_words(desc, valid, vocab, idf: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def bow_words(desc, valid, vocab, idf: Optional[torch.Tensor] = None,
+              vector: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel Y on CUDA tensors, the plain version on CPU tensors: (words
     (N,) int32, -1 outside ``valid``; the L1-normalized vector (W,)
     float32) of packed (N, 32) descriptors over the packed (W, 32)
-    vocabulary, weighted by ``idf`` (W,) where given."""
+    vocabulary, weighted by ``idf`` (W,) where given. ``vector=False``
+    (vocabulary training, up to ``MAX_ROWS`` descriptors a call) writes the
+    words only and returns None for the vector."""
     if desc.device.type == "cpu":
-        return bow_words_plain(desc, valid, vocab, idf)
+        return bow_words_plain(desc, valid, vocab, idf, vector)
     dev = desc.device
     N, W = desc.shape[0], vocab.shape[0]
     specs = [("desc", desc, torch.uint8, (N, 32)),
@@ -82,18 +88,20 @@ def bow_words(desc, valid, vocab, idf: Optional[torch.Tensor] = None
     if idf is not None:
         specs.append(("idf", idf, torch.float32, (W,)))
     build.expect(NAME, dev, specs)
+    if N > MAX_ROWS:
+        raise ValueError(f"{NAME}: {N} descriptors > {MAX_ROWS} a call")
     # the kernel reads descriptors and words as 16-byte vectors
     desc = desc if desc.data_ptr() % 16 == 0 else desc.clone()
     if vocab.data_ptr() % 16:
         raise ValueError(f"{NAME}: vocab must be 16-byte aligned")
     key = torch.empty(max(N, 1), dtype=torch.int64, device=dev)
     words = torch.empty(N, dtype=torch.int32, device=dev)
-    vec = torch.empty(W, dtype=torch.float32, device=dev)
+    vec = torch.empty(W, dtype=torch.float32, device=dev) if vector else None
     err = build.library().osl_bow_words(
         desc.data_ptr(), valid.data_ptr(), N, vocab.data_ptr(), W,
         idf.data_ptr() if idf is not None else None, int(idf is not None),
-        key.data_ptr(), words.data_ptr(), vec.data_ptr(),
-        build.stream_handle(dev))
+        int(vector), key.data_ptr(), words.data_ptr(),
+        vec.data_ptr() if vector else None, build.stream_handle(dev))
     build.check(err, NAME)
     build.count_launch(__name__)
     return words, vec

@@ -78,7 +78,8 @@ _SIGNATURES = {
     "osl_two_view_refine": [_P, _P, _P, _I, _P, _P] + [_F] * 4 + [_P] * 3,
     "osl_two_view_check": [_P, _P, _P, _I] + [_F] * 4 + [_P] * 7,
     "osl_two_view_select": [_P, _I] + [_P] * 8,
-    "osl_bow_words": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    "osl_bow_words": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "osl_vocab_update": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "osl_pnp_ransac": [_P] * 4 + [_I, _P, _I] + [_F] * 4 + [_I] + [_P] * 6,
     "osl_sim3_ransac": [_P] * 5 + [_I, _P, _I] + [_F] * 4 + [_I, _F, _I]
     + [_P] * 5,

@@ -6,10 +6,12 @@
 // as a float matmul of unpacked bits, takes its argmin per row, scatters
 // the counts into a (W,) histogram, weights it by IDF and L1-normalizes it.
 //
-// Bound on the H100: the popcounts. N = 1000 descriptors against 65536
-// words are 5.2e8 256-bit distances of 8 __popc each, against 2 MB of
-// vocabulary, so the integer pipe (16 popcounts a clock per SM on compute
-// capability 9.0) and not the bytes sets the bound.
+// Bound on the H100: the popcounts, for this design. N = 1000 descriptors
+// against 65536 words are 5.2e8 256-bit distances of 8 __popc each, against
+// 2 MB of vocabulary, so the integer pipe (16 popcounts a clock per SM on
+// compute capability 9.0) and not the bytes limits it. The distances are
+// also a {0,1} product of depth 256, exact on the int8 tensor cores at
+// about 7x that rate; chip_smoke.py bounds Y there, a route not taken yet.
 // Design. Launch 1 (assign): grid (descriptor tiles of 256, word tiles of
 // 1024). A block copies its 1024 words (32 KB) into shared memory, then
 // each thread takes one descriptor in registers (two uint4) and scans the
@@ -25,6 +27,9 @@
 // per thread, then the warp butterfly, then the warps in order), so the
 // vector is the same in every run. Words are bit-exact against the plain
 // version; the vector differs only by the order of its sum.
+// Words only (want_vector = 0, vocabulary training and its corpus
+// assignment, N up to 2^19 rows a call): launch 2 is a grid of blocks that
+// writes the words and nothing else; the vector is not touched.
 #include "common.cuh"
 
 namespace {
@@ -68,6 +73,13 @@ __global__ void bow_words_assign_kernel(const uint8_t* __restrict__ desc,
                          static_cast<unsigned int>(w0 + arg));
 }
 
+__global__ void bow_words_only_kernel(const uint8_t* __restrict__ valid,
+                                      const unsigned long long* __restrict__ key,
+                                      int N, int* __restrict__ words) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N) words[i] = valid[i] ? static_cast<int>(key[i] & 0xffffffffull) : -1;
+}
+
 __global__ void bow_words_vector_kernel(const uint8_t* __restrict__ valid,
                                         const unsigned long long* __restrict__ key,
                                         int N, const float* __restrict__ idf,
@@ -107,12 +119,16 @@ __global__ void bow_words_vector_kernel(const uint8_t* __restrict__ valid,
 
 OSL_EXPORT int osl_bow_words(const uint8_t* desc, const uint8_t* valid, int N,
                              const uint8_t* vocab, int W, const float* idf,
-                             int use_idf, unsigned long long* key, int* words,
-                             float* vec, void* stream) {
-  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                             int use_idf, int want_vector,
+                             unsigned long long* key, int* words, float* vec,
+                             void* stream) {
+  if (W <= 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(vec, 0, sizeof(float) * W, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (want_vector) {
+    err = cudaMemsetAsync(vec, 0, sizeof(float) * W, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (N > 0) {
     err = cudaMemsetAsync(key, 0xff, sizeof(unsigned long long) * N, st);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -121,7 +137,11 @@ OSL_EXPORT int osl_bow_words(const uint8_t* desc, const uint8_t* valid, int N,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  bow_words_vector_kernel<<<1, 1024, 0, st>>>(valid, key, N, idf, use_idf, W,
-                                              words, vec);
+  if (want_vector) {
+    bow_words_vector_kernel<<<1, 1024, 0, st>>>(valid, key, N, idf, use_idf, W,
+                                                words, vec);
+  } else if (N > 0) {
+    bow_words_only_kernel<<<(N + 1023) / 1024, 1024, 0, st>>>(valid, key, N, words);
+  }
   return static_cast<int>(cudaGetLastError());
 }

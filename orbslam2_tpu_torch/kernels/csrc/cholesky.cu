@@ -196,7 +196,7 @@ __global__ void cholesky_ba_damp_kernel(const float* __restrict__ S,
       const int ii = 6 * k + c;
       s += fi ? 1.0f : S[static_cast<size_t>(ii) * n + ii];
     }
-    A[t] = (fi ? 1.0f : S[t]) + lam_p[0] * fmaxf(s / 6.0f, 1e-6f);
+    A[t] = (fi ? 1.0f : S[t]) + lam_p[0] * osl::nan_max(s / 6.0f, 1e-6f);
   } else {
     A[t] = (fi || fj) ? 0.0f : 0.5f * (S[t] + S[static_cast<size_t>(j) * n + i]);
   }

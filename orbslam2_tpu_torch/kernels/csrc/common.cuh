@@ -71,6 +71,21 @@ __device__ __forceinline__ float clamp_min(float x, float m) {
   return x < m ? m : x;
 }
 
+// jnp.maximum / jnp.minimum: a NaN in either operand gives NaN, where
+// fmaxf / fminf return the other operand and so drop it. One instruction
+// each (PTX max.NaN / min.NaN, sm_80 on); a test-and-select cost kernel D
+// 3%.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // x = A^-1 y for SPD A by ops/linalg_small.solve_spd_small (n = 4)
 __device__ inline void solve_spd4(const float A[4][4], const float y[4], float x[4]) {
   float L[4][4];

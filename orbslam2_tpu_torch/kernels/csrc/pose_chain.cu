@@ -27,11 +27,11 @@ namespace {
 __device__ void orthonormalize(const float* __restrict__ T, float O[16]) {
   float r0[3] = {T[0], T[4], T[8]};
   float r1[3] = {T[1], T[5], T[9]};
-  const float n0 = fmaxf(sqrtf(r0[0] * r0[0] + r0[1] * r0[1] + r0[2] * r0[2]), 1e-12f);
+  const float n0 = osl::nan_max(sqrtf(r0[0] * r0[0] + r0[1] * r0[1] + r0[2] * r0[2]), 1e-12f);
   for (int i = 0; i < 3; ++i) r0[i] = r0[i] / n0;
   const float d = r1[0] * r0[0] + r1[1] * r0[1] + r1[2] * r0[2];
   for (int i = 0; i < 3; ++i) r1[i] = r1[i] - d * r0[i];
-  const float n1 = fmaxf(sqrtf(r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2]), 1e-12f);
+  const float n1 = osl::nan_max(sqrtf(r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2]), 1e-12f);
   for (int i = 0; i < 3; ++i) r1[i] = r1[i] / n1;
   const float r2[3] = {r0[1] * r1[2] - r0[2] * r1[1], r0[2] * r1[0] - r0[0] * r1[2],
                        r0[0] * r1[1] - r0[1] * r1[0]};

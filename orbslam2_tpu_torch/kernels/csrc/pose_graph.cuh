@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) pose_graph_prepare(PG p) {
     acc[3] += 1.0f;
   }
   for (int i = 0; i < 4; ++i) acc[i] = block_sum(acc[i], scratch);
-  const float nv = fmaxf(acc[3], 1.0f);
+  const float nv = osl::nan_max(acc[3], 1.0f);
   const float c0[3] = {acc[0] / nv, acc[1] / nv, acc[2] / nv};
   float spread = 0.0f;
   for (int k = tid; k < K; k += blockDim.x) {
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) pose_graph_prepare(PG p) {
   }
   spread = block_sum(spread, scratch);
   if (tid == 0) {
-    const float L = fmaxf(sqrtf(spread / nv), 1.0f);
+    const float L = osl::nan_max(sqrtf(spread / nv), 1.0f);
     const float I3[3][3] = {{1, 0, 0}, {0, 1, 0}, {0, 0, 1}};
     W = osl::sim3_make(L, I3, c0);
     osl::sim3_store(osl::sim3_inverse(W), p.Winv);
@@ -252,8 +252,9 @@ __global__ void __launch_bounds__(kThreads) pose_graph_prepare(PG p) {
   }
   __syncthreads();
   for (int k = tid; k < K; k += blockDim.x) {
-    float w = fminf(fmaxf((static_cast<float>(p.pos[k]) - pa) / fmaxf(pb - pa, 1.0f),
-                          0.0f), 1.0f);
+    float w = osl::nan_min(
+        osl::nan_max((static_cast<float>(p.pos[k]) - pa) / osl::nan_max(pb - pa, 1.0f),
+                     0.0f), 1.0f);
     if (p.freeze[k]) w = 0.0f;
     float wg[7];
     for (int i = 0; i < kD; ++i) wg[i] = w * gvec[i];
@@ -295,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) pose_graph_update(PG p) {
   const float c_new = total_cost(p, p.xa, scratch);
   if (threadIdx.x == 0) {
     accept = c_new < p.cost[0];
-    p.lam[0] = accept ? fmaxf(p.lam[0] * 0.2f, 1e-12f) : p.lam[0] * 4.0f;
+    p.lam[0] = accept ? osl::nan_max(p.lam[0] * 0.2f, 1e-12f) : p.lam[0] * 4.0f;
     if (accept) p.cost[0] = c_new;
   }
   __syncthreads();

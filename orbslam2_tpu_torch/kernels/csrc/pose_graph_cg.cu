@@ -374,7 +374,7 @@ __global__ void __launch_bounds__(kSolveThreads) pose_graph_cg_solve(PG p, CG c,
   int it = 0;
   while (it < c.cg_max && rz > 1e-10f * rz0) {
     matvec(p, c, c.d, c.y);
-    const float alpha = rz / fmaxf(block_dot(c.d, c.y, n, scratch), 1e-20f);
+    const float alpha = rz / osl::nan_max(block_dot(c.d, c.y, n, scratch), 1e-20f);
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       c.v[t] += alpha * c.d[t];
       c.r[t] -= alpha * c.y[t];
@@ -382,7 +382,7 @@ __global__ void __launch_bounds__(kSolveThreads) pose_graph_cg_solve(PG p, CG c,
     __syncthreads();
     precond(p, c, c.r, c.z);
     const float rz_new = block_dot(c.r, c.z, n, scratch);
-    const float beta = rz_new / fmaxf(rz, 1e-20f);
+    const float beta = rz_new / osl::nan_max(rz, 1e-20f);
     for (int t = threadIdx.x; t < n; t += blockDim.x) c.d[t] = c.z[t] + beta * c.d[t];
     __syncthreads();
     rz = rz_new;

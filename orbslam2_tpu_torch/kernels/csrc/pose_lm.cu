@@ -11,12 +11,21 @@
 // small kernels per iteration, 1600 per call, several calls a frame.
 // Design: one thread block of 512 threads owns the problem. Per iteration
 // every thread accumulates the 21 upper entries of H and the 6 of b over a
-// strided slice of the edges (skipping edges outside the round's mask, which
-// add exact zeros in the reference), the block reduces them in a fixed order,
-// thread 0 damps (lam * diag(H) + 1e-9 I), solves by the same unrolled
+// strided slice of the round's edges, the block reduces them in a fixed
+// order, thread 0 damps (lam * diag(H) + 1e-9 I), solves by the same unrolled
 // Cholesky as the reference and forms se3_exp(dx) @ Tcw in shared memory,
 // the block reduces the robust trial cost, and thread 0 accepts or rejects
-// with the x0.5 / x4 lambda schedule. Between rounds each thread
+// with the x0.5 / x4 lambda schedule. A valid edge outside the round's
+// mask has weight 0 in the reference, which adds exact zeros to H and b
+// unless its residual is not finite (a NaN point): then H is NaN, every
+// step of the round is rejected and the pose stays. D skips those edges,
+// tests their residuals at the round's starting pose in the previous
+// round's reclassification, and skips the iterations of a round so
+// poisoned. (A masked edge whose Jacobian overflows float32 while its
+// residual does not, or whose residual overflows only at a later pose of
+// the round, a point ~1e13 m out, also poisons the reference's H: ROADMAP
+// queue 3.)
+// Between rounds each thread
 // reclassifies its own edges by chi2 (Huber in rounds 0-1, inliers only
 // from round 2). Built without FMA contraction; the block reduction sums in
 // another order than the plain version, so the pose agrees to rounding,
@@ -65,7 +74,7 @@ __device__ __forceinline__ float edge_eval(const float* T, const float* pts,
   float pc[3];
   transform(T, pts, i, pc);
   const float x = pc[0], y = pc[1];
-  const float z = fmaxf(pc[2], 1e-6f);
+  const float z = osl::nan_max(pc[2], 1e-6f);
   const float inv_z = 1.0f / z;
   const float inv_z2 = inv_z * inv_z;
   const float u = cam.fx * x * inv_z + cam.cx;
@@ -100,10 +109,12 @@ __device__ __forceinline__ float edge_eval(const float* T, const float* pts,
   return z;
 }
 
+// a NaN chi2 (a NaN map point) stays NaN, as the reference's jnp.minimum /
+// jnp.maximum keep it: the round's cost is then NaN and no step is taken
 __device__ __forceinline__ float rho(float chi2, bool huber, float delta2) {
-  const float c = fminf(chi2, 1e9f);
-  if (!huber) return fminf(c, 1e6f);
-  return c <= delta2 ? c : 2.0f * sqrtf(delta2 * fmaxf(c, 1e-12f)) - delta2;
+  const float c = osl::nan_min(chi2, 1e9f);
+  if (!huber) return osl::nan_min(c, 1e6f);
+  return c <= delta2 ? c : 2.0f * sqrtf(delta2 * osl::nan_max(c, 1e-12f)) - delta2;
 }
 
 // Sum `n` per-thread values over the block; the totals land in out[0..n).
@@ -145,7 +156,7 @@ __device__ void solve_step(const float* hb, float lam, float dx[6]) {
   for (int j = 0; j < 6; ++j) {
     float s = A[j][j];
     for (int q = 0; q < j; ++q) s = s - L[j][q] * L[j][q];
-    L[j][j] = sqrtf(fmaxf(s, 1e-12f));
+    L[j][j] = sqrtf(osl::nan_max(s, 1e-12f));
     const float inv = 1.0f / L[j][j];
     for (int i = j + 1; i < 6; ++i) {
       float t = A[i][j];
@@ -188,6 +199,7 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
 
   float lam = 0.0f;   // thread 0's copies of the LM state
   float cost = 0.0f;
+  bool poisoned = false;  // a masked valid edge's residual is not finite
   for (int rnd = 0; rnd < rounds; ++rnd) {
     const bool huber = rnd < 2;
     // edge mask: valid in rounds 0-1, the previous round's inliers after
@@ -199,7 +211,7 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
       const float d2 = st ? kChi2Stereo : kChi2Mono;
       float chi2, r[3];
       const float z = edge_eval(T, pts, obs, i, st, cam,
-                                1.0f / fmaxf(sigma2[i], 1e-12f), &chi2, r,
+                                1.0f / osl::nan_max(sigma2[i], 1e-12f), &chi2, r,
                                 nullptr);
       c0[0] += rho(z <= 1e-5f ? 1e9f : chi2, huber, d2);
     }
@@ -208,7 +220,8 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
       lam = 1e-3f;
       cost = red[0];
     }
-    for (int it = 0; it < iters; ++it) {
+    const int n_iters = huber || !poisoned ? iters : 0;
+    for (int it = 0; it < n_iters; ++it) {
       float acc[kNB];
 #pragma unroll
       for (int k = 0; k < kNB; ++k) acc[k] = 0.0f;
@@ -216,11 +229,11 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
         if (!(huber ? valid[i] : inliers[i])) continue;
         const bool st = obs[3 * i + 2] >= 0.0f;
         const float d2 = st ? kChi2Stereo : kChi2Mono;
-        const float inv_s2 = 1.0f / fmaxf(sigma2[i], 1e-12f);
+        const float inv_s2 = 1.0f / osl::nan_max(sigma2[i], 1e-12f);
         float chi2, r[3], J[3][6];
         edge_eval(T, pts, obs, i, st, cam, inv_s2, &chi2, r, J);
         const float wh =
-            chi2 <= d2 ? 1.0f : sqrtf(d2 / fmaxf(chi2, 1e-12f));
+            chi2 <= d2 ? 1.0f : sqrtf(d2 / osl::nan_max(chi2, 1e-12f));
         const float w = (huber ? wh : 1.0f) * inv_s2;
         int k = 0;
 #pragma unroll
@@ -250,7 +263,7 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
         const bool st = obs[3 * i + 2] >= 0.0f;
         const float d2 = st ? kChi2Stereo : kChi2Mono;
         float chi2, r[3];
-        edge_eval(Tn, pts, obs, i, st, cam, 1.0f / fmaxf(sigma2[i], 1e-12f),
+        edge_eval(Tn, pts, obs, i, st, cam, 1.0f / osl::nan_max(sigma2[i], 1e-12f),
                   &chi2, r, nullptr);
         cn[0] += rho(chi2, huber, d2);
       }
@@ -265,17 +278,23 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ pts,
       if (accept_flag && tid < 16) T[tid] = Tn[tid];
       __syncthreads();
     }
-    // chi2 reclassification of every edge at the round's pose
+    // chi2 reclassification of every edge at the round's pose, the next
+    // round's starting pose
+    bool bad = false;
     for (int i = tid; i < N; i += kThreads) {
       const bool st = obs[3 * i + 2] >= 0.0f;
       float chi2, r[3];
       const float z = edge_eval(T, pts, obs, i, st, cam,
-                                1.0f / fmaxf(sigma2[i], 1e-12f), &chi2, r,
+                                1.0f / osl::nan_max(sigma2[i], 1e-12f), &chi2, r,
                                 nullptr);
       if (z <= 1e-5f) chi2 = 1e9f;
-      inliers[i] = valid[i] && chi2 <= (st ? kChi2Stereo : kChi2Mono);
+      const bool inl = valid[i] && chi2 <= (st ? kChi2Stereo : kChi2Mono);
+      inliers[i] = inl;
       chi2_out[i] = chi2;
+      bad |= valid[i] && !inl &&
+             !(isfinite(r[0]) && isfinite(r[1]) && isfinite(r[2]));
     }
+    poisoned = __syncthreads_or(bad);
   }
   float cnt[1] = {0.0f};
   for (int i = tid; i < N; i += kThreads) cnt[0] += inliers[i] ? 1.0f : 0.0f;

@@ -198,8 +198,8 @@ sim3_opt_lm(const float* __restrict__ S0, Edge e, const float* __restrict__ s2_1
   __shared__ bool better;
   const float delta = sqrtf(th2);
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    inv1[n] = 1.0f / sqrtf(fmaxf(s2_1[n], 1e-9f));
-    inv2[n] = 1.0f / sqrtf(fmaxf(s2_2[n], 1e-9f));
+    inv1[n] = 1.0f / sqrtf(osl::nan_max(s2_1[n], 1e-9f));
+    inv2[n] = 1.0f / sqrtf(osl::nan_max(s2_2[n], 1e-9f));
     mask[n] = valid[n];
   }
   e.inv1 = inv1;
@@ -241,7 +241,7 @@ sim3_opt_lm(const float* __restrict__ S0, Edge e, const float* __restrict__ s2_1
         residual4(cam, xf.s, xf.R, xf.t, xfi.s, xfi.R, xfi.t, e, n, r);
         const float e1 = sqrtf(r[0].v * r[0].v + r[1].v * r[1].v + 1e-12f);
         const float e2 = sqrtf(r[2].v * r[2].v + r[3].v * r[3].v + 1e-12f);
-        const float w12[2] = {fminf(1.0f, delta / e1), fminf(1.0f, delta / e2)};
+        const float w12[2] = {osl::nan_min(1.0f, delta / e1), osl::nan_min(1.0f, delta / e2)};
         for (int row = 0; row < 4; ++row) {
           const float w = w12[row / 2];
           int k = 0;
@@ -301,7 +301,7 @@ sim3_opt_lm(const float* __restrict__ S0, Edge e, const float* __restrict__ s2_1
           costs[2 * (phase * iters1 + it) + 1] = cost[1];
         }
         if (better) S = S_new;
-        lam = fminf(fmaxf(better ? lam * 0.5f : lam * 4.0f, 1e-6f), 1e4f);
+        lam = osl::nan_min(osl::nan_max(better ? lam * 0.5f : lam * 4.0f, 1e-6f), 1e4f);
       }
       __syncthreads();
     }
@@ -379,9 +379,10 @@ __global__ void sim3_search_kernel(Side a, Side b, const float* __restrict__ S12
                   uv[1] >= 0.0f && uv[1] < cam.height;
   unsigned long long best = kNone;
   if (ok) {
-    float ratio = src.dmax[i] / fmaxf(dist, 1e-9f);
-    ratio = fmaxf(ratio, 1e-6f);
-    // clipped before the conversion, so an infinite band gives the top level
+    float ratio = src.dmax[i] / osl::nan_max(dist, 1e-9f);
+    ratio = osl::nan_max(ratio, 1e-6f);
+    // clipped before the conversion, so an infinite band gives the top level;
+    // fmaxf / fminf take a NaN level to 0, as XLA converts NaN to the int 0
     const int pred = static_cast<int>(
         fminf(fmaxf(ceilf(logf(ratio) / log_sf), 0.0f), static_cast<float>(n_levels - 1)));
     const float r = r_table[pred];

@@ -122,8 +122,10 @@ def pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2, valid, rounds=4, iters=10,
                   gate=None, out=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Tcw, inliers (N,) bool, n_inliers () int32, chi2 (N,)). Edges
-    outside ``valid`` add exact zeros in the reference, so the LM runs on
-    the valid edges only. ``gate`` and ``out`` as for ``pose_lm``."""
+    outside ``valid`` add exact zeros in the reference unless their point
+    is NaN, so the LM runs on the valid edges only (a NaN point on an
+    invalid edge freezes the reference's LM, not this one: ROADMAP queue
+    3). ``gate`` and ``out`` as for ``pose_lm``."""
     if not build.gate_open(gate):
         return _outputs(pts_w.shape[0], pts_w.device, out)
     T, inliers, n_inl, chi2 = _pose_lm_plain(Tcw_init, cam, pts_w, obs, sigma2,

@@ -15,6 +15,9 @@ the map. Trajectories export in the TUM and KITTI formats. With loop
 closing on, the mapper launches each keyframe's BoW vector at the start of
 its round (``KeyFrameDatabase.precompute_async``). ``warmup()`` builds the
 kernel library and runs a synthetic frame and keyframe round beforehand.
+``metrics_path`` streams one JSON record a committed frame
+(``utils/telemetry.MetricsLog``); ``render_snapshot`` draws the map and
+trajectory to a PNG (matplotlib).
 """
 
 from __future__ import annotations
@@ -36,11 +39,16 @@ from .tracking import Tracker, TrackingState
 
 class SlamSystem:
     def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, metrics_path: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.enable_loop_closing = enable_loop_closing
         self.localization_only = False
+        self.metrics_log = None
+        if metrics_path:
+            from .utils.telemetry import MetricsLog
+
+            self.metrics_log = MetricsLog(metrics_path)
         self._build()
 
     def _build(self):
@@ -49,6 +57,7 @@ class SlamSystem:
         self.tracker = Tracker(self.cfg, self.map, kfdb=self.kfdb,
                                device=self.device)
         self.tracker.localization_only = self.localization_only
+        self.tracker.metrics_log = self.metrics_log
         self.local_mapper = LocalMapper(self.cfg, self.map, self.tracker.cam)
         self.loop_closer = LoopCloser(
             self.cfg, self.map, self.tracker.cam, self.kfdb
@@ -64,6 +73,16 @@ class SlamSystem:
         from .warmup import warmup_system
 
         return warmup_system(self)
+
+    def render_snapshot(self, path: str, title: str = ""):
+        """Export a top-down map/trajectory PNG (the viewer replacement;
+        needs matplotlib)."""
+        from .utils.telemetry import render_map_snapshot
+
+        traj = np.stack(
+            [np.linalg.inv(T)[:3, 3] for _, _, T in self.tracker.trajectory]
+        ) if self.tracker.trajectory else None
+        render_map_snapshot(self.map, path, trajectory=traj, title=title)
 
     # ------------------------------------------------------------------
     # Tracking entry points
@@ -122,8 +141,11 @@ class SlamSystem:
         self._build()
 
     def shutdown(self):
-        """The synchronous system has nothing running between calls;
-        ``AsyncSlamSystem.shutdown`` stops its workers."""
+        """Close the metrics log. The synchronous system has nothing
+        running between calls; ``AsyncSlamSystem.shutdown`` also stops its
+        workers."""
+        if self.metrics_log is not None:
+            self.metrics_log.close()
 
     # ------------------------------------------------------------------
     # Map persistence

@@ -268,6 +268,7 @@ class Tracker:
         self.local_point_cap = int(cfg.tracking.local_map_point_cap)
         self.trajectory: List[Tuple[int, float, np.ndarray]] = []
         self.metrics: List[dict] = []
+        self.metrics_log = None  # optional utils.telemetry.MetricsLog
         self.reset_requested = False
         self.localization_only = False  # no keyframes, no map growth
         self.pending_keyframes: List[int] = []
@@ -410,6 +411,16 @@ class Tracker:
         self.frame_id = frame.frame_id + 1
         if new_kf is not None:
             self.pending_keyframes.append(new_kf)
+        if self.metrics_log is not None:
+            # one record a committed frame, on the synchronous and the
+            # pipelined commit alike (track_ms from the frame's dispatch)
+            self.metrics_log.emit(
+                frame=frame.frame_id,
+                state=self.state.name,
+                inliers=self.n_inliers_last,
+                kf=new_kf if new_kf is not None else -1,
+                track_ms=round((time.perf_counter() - t_start) * 1000, 2),
+            )
 
     # ------------------------------------------------------------------
     # Pipelined tracking: commit behind the dispatch

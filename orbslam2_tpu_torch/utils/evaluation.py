@@ -13,6 +13,28 @@ from typing import Tuple
 import numpy as np
 
 
+def associate_trajectories(
+    t_est: np.ndarray, t_gt: np.ndarray, max_dt: float = 0.02
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy nearest-timestamp association (like TUM associate.py)."""
+    i = j = 0
+    pairs = []
+    while i < len(t_est) and j < len(t_gt):
+        dt = t_est[i] - t_gt[j]
+        if abs(dt) <= max_dt:
+            pairs.append((i, j))
+            i += 1
+            j += 1
+        elif dt > 0:
+            j += 1
+        else:
+            i += 1
+    if not pairs:
+        return np.zeros(0, int), np.zeros(0, int)
+    a, b = zip(*pairs)
+    return np.asarray(a), np.asarray(b)
+
+
 def horn_align_np(src: np.ndarray, dst: np.ndarray, with_scale: bool = True):
     """Closed-form s, R, t with dst ~ s R src + t (numpy oracle version)."""
     mu_s = src.mean(0)
@@ -49,6 +71,47 @@ def ate_rmse(
     aligned = s * traj_est @ R.T + t
     err = np.linalg.norm(aligned - traj_gt, axis=1)
     return float(np.sqrt((err ** 2).mean()))
+
+
+def load_tum_groundtruth(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """TUM groundtruth.txt -> (timestamps (N,), positions (N, 3))."""
+    ts, xyz = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            p = line.split()
+            ts.append(float(p[0]))
+            xyz.append([float(p[1]), float(p[2]), float(p[3])])
+    return np.asarray(ts), np.asarray(xyz)
+
+
+def load_kitti_poses(path: str) -> np.ndarray:
+    """KITTI poses/SS.txt (3x4 row-major per line) -> (N, 4, 4) Twc."""
+    rows = np.loadtxt(path).reshape(-1, 3, 4)
+    out = np.tile(np.eye(4), (len(rows), 1, 1))
+    out[:, :3, :] = rows
+    return out
+
+
+def load_euroc_groundtruth(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """EuRoC state_groundtruth_estimate0/data.csv -> (ts_s (N,), pos (N,3))."""
+    ts, xyz = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            p = line.split(",")
+            ts.append(float(p[0]) * 1e-9)
+            xyz.append([float(p[1]), float(p[2]), float(p[3])])
+    return np.asarray(ts), np.asarray(xyz)
+
+
+def load_tum_trajectory(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """TUM-format trajectory file -> (timestamps, positions)."""
+    return load_tum_groundtruth(path)
 
 
 def rpe(

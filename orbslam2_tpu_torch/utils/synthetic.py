@@ -124,6 +124,39 @@ def make_box_room(seed=0, size=6.0, height=3.0, styles="rects") -> List[Plane]:
     return planes
 
 
+def make_corridor(seed=0, length=120.0, width=8.0, height=5.0,
+                  segment=10.0) -> List[Plane]:
+    """Street-like corridor along +z: ground plane plus two facade walls
+    tiled from `segment`-meter panels with independently drawn textures.
+
+    Panels share texture STYLES (brick rows, stripe periods) while differing
+    in detail — the self-similar-but-not-identical structure that makes
+    street-scale place recognition hard (KITTI 00's facade problem), which a
+    box room cannot reproduce. Drive a camera down +z for a KITTI-ish run."""
+    rng = np.random.default_rng(seed)
+    w, h = width / 2.0, height
+    planes = []
+
+    def add(p0, eu, ev, style=None):
+        planes.append(
+            Plane(np.asarray(p0, np.float32), np.asarray(eu, np.float32),
+                  np.asarray(ev, np.float32),
+                  _make_texture(rng, style=style))
+        )
+
+    n_seg = max(int(np.ceil(length / segment)), 1)
+    # one ground strip per segment (texture variety along the track too)
+    for i in range(n_seg):
+        z0 = i * segment
+        add([-w, 2.0, z0], [width, 0, 0], [0, 0, segment], style="blobs")
+        # facades: mostly bricks/stripes — the repeating-structure confusers
+        style = ["bricks", "stripes", "rects"][int(rng.integers(0, 3))]
+        add([-w, 2.0 - h, z0], [0, 0, segment], [0, h, 0], style=style)
+        style = ["bricks", "stripes", "rects"][int(rng.integers(0, 3))]
+        add([+w, 2.0 - h, z0], [0, 0, segment], [0, h, 0], style=style)
+    return planes
+
+
 def render(
     planes: List[Plane],
     K: np.ndarray,

@@ -124,6 +124,45 @@ def test_pose_lm_matches_plain(cuda):
     assert abs(int(nk) - int(npl)) <= 0.005 * valid.sum()
 
 
+
+def test_pose_lm_nan_point_matches_plain(cuda):
+    """Kernel D with one NaN map point and one behind the camera among the
+    valid edges: the NaN point's chi2 stays NaN as in the plain version
+    (and the reference), the point behind costs 1e9, and the pose, the
+    inlier flags and chi2 agree with the plain version's."""
+    rng = np.random.default_rng(33)
+    n = 4096
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                    rng.uniform(2, 8, n)], 1).astype(np.float32)
+    pc = pts + np.float32([0.05, -0.02, 0.1])
+    u = 260 * pc[:, 0] / pc[:, 2] + 160 + rng.normal(0, 0.7, n)
+    v = 260 * pc[:, 1] / pc[:, 2] + 120 + rng.normal(0, 0.7, n)
+    ur = np.where(rng.random(n) < 0.5, u - 26.0 / pc[:, 2], -1.0)
+    obs = np.stack([u, v, ur], 1).astype(np.float32)
+    obs[rng.random(n) < 0.1, :2] += 30.0
+    valid = rng.random(n) < 0.15
+    nan_i, behind_i = np.where(valid)[0][:2]
+    pts[nan_i] = np.nan
+    pts[behind_i, 2] = -3.0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)  # noqa: E731
+    cam = Camera.create(260.0, 260.0, 160.0, 120.0, bf=26.0, width=W, height=H)
+    # started near the truth; the NaN point keeps H NaN (its Jacobian
+    # weighted by 0), so no round takes a step, as in the reference
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, 3] = [0.054, -0.023, 0.105]
+    args = (t(T0), cam, t(pts), t(obs),
+            t((1.2 ** (2.0 * rng.integers(0, 4, n))).astype(np.float32)), t(valid))
+    Tk, ik, nk, ck = pose_lm.pose_lm(*args)
+    Tp, ip, npl, cp = pose_lm.pose_lm_plain(*args)
+    assert torch.isnan(cp[nan_i]) and torch.isnan(ck[nan_i])
+    assert ck[behind_i].item() == cp[behind_i].item() == np.float32(1e9)
+    assert torch.equal(torch.isnan(ck), torch.isnan(cp))
+    assert torch.allclose(ck, cp, rtol=1e-3, atol=1e-3, equal_nan=True)
+    assert (Tk - Tp).abs().max().item() <= 1e-4
+    assert not ik[nan_i] and not ik[behind_i]
+    assert (ik != ip).sum().item() <= 0.005 * valid.sum()
+    assert abs(int(nk) - int(npl)) <= 0.005 * valid.sum()
+
 # the local-BA window and the reference bench's shape, with the iterations
 # chip_smoke.py runs there, and one past kernel F's 64 cameras (F' solving)
 BA_SHAPES = [(16, 1024, 5), (64, 4096, 10), (96, 8192, 5)]
@@ -1465,3 +1504,92 @@ def test_double_orbit_with_live_loop_closure(cuda):
     for kf in m.valid_keyframes():
         mps = m.kf_mp[kf][m.kf_mp[kf] >= 0]
         assert m.mp_valid[mps].all()
+
+
+# ---------------------------------------------------------------------------
+# Slice 11a: vocabulary training (kernels Y words-only and Y'), the
+# evaluation harness
+# ---------------------------------------------------------------------------
+
+def _clustered_desc(dev, n, n_seeds, seed):
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2, (n_seeds, 256)).astype(np.uint8)
+    bits = seeds[rng.integers(0, n_seeds, n)] ^ (rng.random((n, 256)) < 0.08)
+    return torch.from_numpy(np.packbits(bits.astype(np.uint8), axis=1,
+                                        bitorder="little")).to(dev)
+
+
+def test_vocab_update_bit_exact(cuda):
+    """Kernel Y' against its plain version: counts, sums and packed centres
+    bit-exact, with empty words, and the same on a second call."""
+    from orbslam2_tpu_torch.kernels import vocab_update
+
+    desc = _clustered_desc(cuda, 60000, 500, 41)
+    W = 4096
+    rng = np.random.default_rng(42)
+    words = torch.from_numpy(rng.integers(0, W - 100, 60000).astype(np.int32)).to(cuda)
+    old = torch.from_numpy(rng.integers(0, 256, (W, 32)).astype(np.uint8)).to(cuda)
+    ck, sk, nk = vocab_update.vocab_update(desc, words, old)
+    cp, sp, np_ = vocab_update.vocab_update_plain(desc, words, old)
+    assert torch.equal(ck, cp) and torch.equal(sk, sp) and torch.equal(nk, np_)
+    assert torch.equal(nk[W - 100:], old[W - 100:])
+    assert torch.equal(vocab_update.vocab_update(desc, words, old)[2], nk)
+
+
+def test_bow_words_only_at_training_shape(cuda):
+    """Kernel Y without its vector over 2^19 rows (its launch limit): the
+    words bit-exact against the plain version's."""
+    from orbslam2_tpu_torch.kernels import bow_words
+
+    n = bow_words.MAX_ROWS
+    desc = _clustered_desc(cuda, n, 2000, 43)
+    vocab = _clustered_desc(cuda, 8192, 2000, 44)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    wk, vk = bow_words.bow_words(desc, valid, vocab, vector=False)
+    wp, _ = bow_words.bow_words_plain(desc, valid, vocab, vector=False)
+    assert vk is None and torch.equal(wk, wp)
+    with pytest.raises(ValueError):
+        bow_words.bow_words(torch.cat([desc, desc[:1]]),
+                            torch.ones(n + 1, dtype=torch.bool, device=cuda),
+                            vocab, vector=False)
+
+
+def test_train_vocabulary_matches_plain(cuda):
+    """The device trainer on kernels Y and Y' against the plain trainer on
+    the card, and the IDF weights: bit-exact."""
+    from orbslam2_tpu_torch.ops import bow
+
+    desc = _clustered_desc(cuda, 40000, 1500, 45).cpu().numpy()
+    a = bow.train_vocabulary_device(desc, n_words=4096, iters=3, device=cuda)
+    b = bow.train_vocabulary_device(desc, n_words=4096, iters=3, device=cuda,
+                                    plain=True)
+    np.testing.assert_array_equal(a, b)
+    valid = np.ones(len(desc), bool)
+    docs = np.arange(len(desc)) // 400
+    np.testing.assert_array_equal(
+        bow.compute_idf(desc, valid, docs, a, device=cuda),
+        bow.compute_idf(desc, valid, docs, a, device=cuda, plain=True))
+
+
+def test_eval_harness_dry_run(tmp_path):
+    """The port's evaluation harness dry run on the card (30 rendered TUM
+    frames at 320x240 written as 8-bit PNGs): ok, ATE < 0.10 m, >= 20
+    associated poses (tests/test_eval_harness.py's bounds)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "eval.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "orbslam2_tpu_torch.examples.eval_datasets",
+         "--dry-run", "--out", str(out)],
+        capture_output=True, text=True, timeout=900, cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(out.read_text())
+    res = report["results"][0]
+    assert report["dry_run"] and res["ok"], res
+    assert res["ate_rmse"] < 0.10 and res["n_assoc"] >= 20

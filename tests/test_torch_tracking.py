@@ -158,6 +158,41 @@ def test_optimize_pose(n, n_valid):
     assert np.abs(rt.Tcw.numpy()[:3, 3] - T_true[:3, 3]).max() < 5e-3
 
 
+
+def _nan_point_problem(seed=13, n=1024, n_valid=600):
+    """The pose problem with one valid map point NaN and one valid point
+    behind the camera, started near the truth."""
+    T0, pts, obs, sigma2, valid, T_true = _pose_problem(seed, n, n_valid)
+    T0 = T_true.copy()
+    T0[:3, 3] += np.float32([0.004, -0.003, 0.005])
+    nan_i, behind_i = np.where(valid)[0][:2]
+    pts[nan_i] = np.nan
+    pts[behind_i, 2] = -3.0
+    return (T0, pts, obs, sigma2, valid, T_true), nan_i, behind_i
+
+
+def test_pose_lm_nan_point_as_reference():
+    """A NaN map point keeps its NaN chi2 through the LM, as the
+    reference's jnp.maximum / jnp.minimum keep it, and a point behind the
+    camera costs 1e9. The NaN point is no inlier, but its zero-weighted
+    Jacobian (NaN x 0) keeps H NaN in every round, so the reference takes
+    no step at all (ROADMAP queue 3): the pose stays at the start."""
+    (T0, pts, obs, sigma2, valid, _), nan_i, behind_i = _nan_point_problem()
+    rj = jpose.optimize_pose(jnp.asarray(T0), JCamera.create(**CAM), jnp.asarray(pts),
+                             jnp.asarray(obs), jnp.asarray(sigma2), jnp.asarray(valid))
+    rt = tpose.optimize_pose(_t(T0), TCamera.create(**CAM), _t(pts), _t(obs),
+                             _t(sigma2), _t(valid))
+    cj, ct = np.asarray(rj.chi2), rt.chi2.numpy()
+    assert np.isnan(cj[nan_i]) and np.isnan(ct[nan_i])
+    assert cj[behind_i] == ct[behind_i] == np.float32(1e9)
+    np.testing.assert_array_equal(np.isnan(ct), np.isnan(cj))
+    np.testing.assert_allclose(ct, cj, rtol=1e-3, atol=1e-3, equal_nan=True)
+    np.testing.assert_allclose(rt.Tcw.numpy(), np.asarray(rj.Tcw), atol=1e-4)
+    assert not rt.inliers[nan_i] and not rt.inliers[behind_i]
+    assert (rt.inliers.numpy() != np.asarray(rj.inliers)).sum() <= 0.005 * valid.sum()
+    assert abs(int(rt.n_inliers) - int(rj.n_inliers)) <= 0.005 * valid.sum()
+    np.testing.assert_array_equal(np.asarray(rj.Tcw), T0)
+
 def _depth_case(seed=14, n=512):
     """A stride-2 uint16 millimetre depth map of a 320x240 frame (10% holes)
     and n keypoints, 90% valid."""

@@ -148,7 +148,26 @@ Phases, each printing one line:
      map's; (a) Y and Y' against their plain versions at W = 65536 and the
      corpus's N on the first iteration's arguments, bit-exact; a "surfaces"
      line. Kernel Y's row at training shape is its own row
-     ("bow_words_training", its launches the training's).
+     ("bow_words_training", its launches the training's);
+ 11. the landmark-sharded global BA (mesh_path, slice 10a): (a) meshes of 2
+     and 4 shards of the card (parallel/sharded_ba.py) at K=64/M=4096 and
+     K=256/M=32768 (O=8, 10 iterations + the outlier round; F and F'
+     solving), each solve launching E, G and H once a shard an LM
+     iteration, F or F' once and shard_reduce twice (and once a phase),
+     held within ba_parity.LIMITS against the plain sharded schedule and
+     against the one-shard kernel schedule, a second call the same bits,
+     shard_reduce bit-exact against its plain twin on the rows the meshes
+     summed; (b) LoopCloser.global_bundle_adjustment(use_mesh=True) over 4
+     shards on the circuit's map as phase 7's GBA found it: padded, written
+     back, reprojection medians < 1 px; (c) two gloo ranks sharing the card
+     through parallel/smoke_worker.py (file:// rendezvous, 120 s a rank at
+     most) against (a)'s 2-shard result within LIMITS, both ranks the same
+     poses, and a one-rank NCCL group through parallel/distributed.py's
+     all-reduce; (d) where the machine shows several cards, a mesh across
+     the first min(4, count). Its counts are set to 0 just before (a) and
+     read after (c) (exactly PATHS["mesh"]); a "mesh" line with the
+     readings and ms per LM iteration for 1, 2 and 4 shards of the one card
+     (the overhead of sharding, not scaling), and shard_reduce's row.
 Phase 3 also holds the BA schedule at the largest global-BA bucket (K=256,
 M=32768, O=8, kernel F' solving), F' beside the library's Cholesky solve
 at 6K=1536, P on a drifted 384-keyframe ring against its plain version,
@@ -318,39 +337,49 @@ def batch_ms(fn, calls, rounds=3):
     return statistics.median(times)
 
 
-profile_retries = []   # (kernel, events seen, launches) of discarded profiles
+profile_retries = []   # (kernel, events seen, launches, lead, trail) of discarded profiles
 profile_gaps = {}      # kernel: (events seen, launches) where every profile missed some
+profile_fallbacks = {}  # kernel: how its device ms was taken where no profile saw it
+# Launches of other kernels on each side of the profiled calls: the profiler
+# drops a run of events at a profile's edge later in a long process (the
+# rows after phase 11 missed 4 to 23 launches a profile, and all 40 of
+# match_rot's once), so the edges are wide and each side is counted.
+MARGIN = 64
+LEAD_KERNEL, TRAIL_KERNEL = "spin_kernel", "neg_kernel"
 
 
 def device_events(fn, kernel, reps=20):
-    """(device ms, events) of the CUDA kernels whose name holds ``kernel``
-    (every device event with ``kernel=None``) over ``reps`` calls of
-    ``fn``, from torch.profiler's device events. For a named kernel, other
-    launches (an add of one float) come before and after the calls inside
-    the profile, so that events the profiler drops at its edges are not
-    the kernel's."""
+    """(device ms, events, (lead, trail)) of the CUDA kernels whose name
+    holds ``kernel`` (every device event with ``kernel=None``) over
+    ``reps`` calls of ``fn``, from torch.profiler's device events. For a
+    named kernel, MARGIN launches of other kernels come before the calls
+    (spins of ~50 us) and after them (a negation of one float), each side
+    synchronised, so that events the profiler drops at its edges are not
+    the kernel's; (lead, trail) counts the margins' events it kept."""
     fn()
     torch.cuda.synchronize()
     pad = torch.zeros(1, device="cuda")
 
-    def margin():
+    def margin(launch):
         if kernel is not None:
-            for _ in range(8):
-                pad.add_(1.0)
+            for _ in range(MARGIN):
+                launch()
             torch.cuda.synchronize()
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        margin()
+        margin(lambda: torch.cuda._sleep(100_000))
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        margin()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.key)]
+        margin(pad.neg_)
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in device if kernel is None or kernel in e.key]
+    edges = tuple(sum(e.count for e in device if name in e.key)
+                  for name in (LEAD_KERNEL, TRAIL_KERNEL))
     return (sum(e.self_device_time_total for e in events) / 1e3,
-            sum(e.count for e in events))
+            sum(e.count for e in events), edges)
 
 
 def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
@@ -361,15 +390,24 @@ def device_ms(fn, kernel, reps=20, per_call=1, attempts=3):
     missed any is recorded in ``profile_retries`` and taken again,
     ``attempts`` times at most. If every profile missed launches, the mean
     time of the launches the fullest one recorded, times ``per_call``, and
-    the kernel's (events, launches) in ``profile_gaps``."""
+    the kernel's (events, launches) in ``profile_gaps``. If no profile
+    recorded any, CUDA events around ``reps`` back-to-back calls (device
+    time with whatever host gaps the calls leave), said in
+    ``profile_fallbacks`` and printed."""
+    profile_fallbacks.pop(kernel, None)
     best = (0.0, 0)
     for _ in range(attempts):
-        total, count = device_events(fn, kernel, reps)
+        total, count, edges = device_events(fn, kernel, reps)
         if kernel is None or count == reps * per_call:
             return total / reps
-        profile_retries.append((kernel, count, reps * per_call))
+        profile_retries.append((kernel, count, reps * per_call) + edges)
         best = max(best, (total, count), key=lambda tc: tc[1])
-    check(best[1] > 0, f"{kernel}: no device event in {attempts} profiles")
+    if best[1] == 0:
+        how = (f"CUDA events around {reps} back-to-back calls (no launch in "
+               f"{attempts} profiles)")
+        profile_fallbacks[kernel] = how
+        print(f"device time of {kernel}: {how}")
+        return batch_ms(fn, reps)
     profile_gaps[kernel] = (best[1], reps * per_call)
     return best[0] / best[1] * per_call
 
@@ -799,7 +837,7 @@ def ba_rows(dev, record):
                               for a in ba_window(K, M, 8, seed=K)))
 
     def rel_err(a, b):
-        """max |a - b| over max |b| (sums in another order, float atomics)"""
+        """max |a - b| over max |b| (sums in another order)"""
         return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
     def point_err(a, b):
@@ -825,6 +863,9 @@ def ba_rows(dev, record):
     # E: linearisation and the reduced camera system
     e_args = (cam, prob.poses, prob.points, *obs, prob.obs_valid, lam, True)
     lin_k = ba_linearize.ba_linearize(*e_args)
+    lin_k2 = ba_linearize.ba_linearize(*e_args)
+    check(all(torch.equal(a, b) for a, b in zip(lin_k, lin_k2)),
+          "kernel E: a second call differs (its sums are in fixed point)")
     lin_p = ba_linearize.ba_linearize_plain(*e_args)
     errs = [rel_err(a, b) for a, b in zip(lin_k, lin_p)]
     check(max(errs) <= 1e-4, f"kernel E relative errors {errs} > 1e-4")
@@ -833,12 +874,13 @@ def ba_rows(dev, record):
            cuda_ms(lambda: ba_linearize.ba_linearize_plain(*e_args)),
            f"K={K} M={M} O={O}, {n_obs} observations, {n_pairs} pairs; "
            f"relative errors (S, b_S, E, Dinv, b_l) "
-           + ", ".join(f"{e:.1e}" for e in errs),
+           + ", ".join(f"{e:.1e}" for e in errs) + "; a second call the same bits",
+           per_call=ba_linearize.LAUNCHES_PER_CALL,
            # inputs read once; S, b_S, E, Dinv, b_l written; per observation
            # projection, Jacobians, weight, its H and b, E, D, b_l, E D^-1
            # and its b_S term (~680 ops), per ordered pair of a landmark's
-           # observations a 6x6 block of 3-term dot products and its atomic
-           # add (216), per landmark the damped adjugate inverse (~60)
+           # observations a 6x6 block of 3-term dot products and its add
+           # (216), per landmark the damped adjugate inverse (~60)
            n_bytes=nbytes(prob.poses, prob.points, *obs, prob.obs_valid, lam,
                           *lin_k),
            n_ops=680 * n_obs + 216 * n_pairs + 60 * M)
@@ -916,8 +958,8 @@ def ba_rows(dev, record):
            # lambda, poses and points written; one compare and two selects
            n_bytes=nbytes(*st_t) + nbytes(*st_t[3:]), n_ops=3)
 
-    # the whole schedule, kernels against the plain schedule: float atomics
-    # in S and sums in another order, held to ba_parity.LIMITS (poses 1e-4,
+    # the whole schedule, kernels against the plain schedule: sums in
+    # another order, held to ba_parity.LIMITS (poses 1e-4,
     # points 1e-4 of their distance where the inliers constrain them,
     # every point's reprojections 1e-2 px, 0.1% inlier flips, cost 1e-3)
     for K, M, iters in ba_parity.SHAPES:
@@ -1844,16 +1886,21 @@ def loop_path(dev):
     closure = {}
     process = closer.process_keyframe
 
+    snap_s = []   # seconds of the snapshot below, left out of the stages
+
     def timed_process(kf, *a, **k):
         acc.clear()
+        snap_s.clear()
         torch.cuda.synchronize()
         t = time.perf_counter()
         closed = process(kf, *a, **k)
         torch.cuda.synchronize()
         if closed and not closure:
+            if snap_s:
+                acc["gba_gather"] -= sum(snap_s)
             closure.update(ms={key: 1e3 * v for key, v in acc.items()},
                            stats=dict(closer.last_stats))
-            closure["ms"]["total"] = 1e3 * (time.perf_counter() - t)
+            closure["ms"]["total"] = 1e3 * (time.perf_counter() - t - sum(snap_s))
         return closed
 
     closer.process_keyframe = timed_process
@@ -1865,6 +1912,18 @@ def loop_path(dev):
         variant_calls.extend([1] if hit else [])
         return hit
 
+    # the map as its global BA finds it (phase 11 runs the mesh GBA on it)
+    before_gba = {}
+    gather = closer._gba_gather
+
+    def snapshot_gather(*a, **k):
+        if not before_gba:
+            t = time.perf_counter()
+            before_gba.update(map_snapshot(closer.map))
+            snap_s.append(time.perf_counter() - t)
+        return gather(*a, **k)
+
+    closer._gba_gather = snapshot_gather
     peak, first_close, times = 0.0, None, []
     kernels.reset_launches()
     with contextlib.ExitStack() as stack:
@@ -1890,6 +1949,7 @@ def loop_path(dev):
             elif first_close is None:
                 first_close = i
     counts = kernels.launch_counts()
+    del closer._gba_gather
     post = slices.keyframe_ate(slam, poses)
     n_kf = len(slam.map.valid_keyframes())
     path_line("loop", times, counts)
@@ -1906,7 +1966,16 @@ def loop_path(dev):
                   gba=dict(K=int(gba_prob.poses.shape[0]),
                            M=int(gba_prob.points.shape[0]), iters=int(gba_iters)),
                   peak_ate=peak, post_ate=post, keyframes=n_kf)
-    return counts, {k: c.args for k, c in caps.items()}, fields
+    args = {k: c.args for k, c in caps.items()}
+    args["map_before_gba"] = before_gba
+    return counts, args, fields
+
+
+def map_snapshot(m):
+    """Copies of a MapState's fields, for ``map_state_from_numpy``."""
+    return {f.name: copy.deepcopy(getattr(m, f.name))
+            for f in dataclasses.fields(m)
+            if f.name not in ("cfg", "lock", "dev_kf", "device")}
 
 
 # Float operations of csrc/sim3.cuh's routines, counted from its source
@@ -2380,7 +2449,7 @@ def pose_graph_cg_launches(dev):
     for iters in (2, 4):
         expected = 2 + iters * per_lm
         for _ in range(3):
-            _, events = device_events(
+            _, events, _ = device_events(
                 lambda: pose_graph_cg.optimize_pose_graph(*a, iters=iters),
                 pose_graph_cg.FUNCTION, reps=1)
             if events == expected:
@@ -2423,9 +2492,7 @@ def scale_path(dev):
                           span=SCALE_SPAN, depth=SCALE_DEPTH)
     build_ms = 1e3 * (time.perf_counter() - t)
     # the essential graph's map: a copy taken before the sweep
-    snapshot = {f.name: copy.deepcopy(getattr(m, f.name))
-                for f in dataclasses.fields(m)
-                if f.name not in ("cfg", "lock", "dev_kf", "device")}
+    snapshot = map_snapshot(m)
     closer = LoopCloser(cfg, m, cam, KeyFrameDatabase(m, device=dev))
     e_pre = rms_centre_error(m, kf_ids)
     e_pre_old = rms_centre_error(m, kf_ids[:SCALE_OLDEST])
@@ -3248,6 +3315,283 @@ def surfaces_path(slam, frames, poses, pairs, pair_poses):
     return fields
 
 
+# phase 11, the landmark-sharded global BA: the shapes of ba_parity.SHAPES
+# past the local window (F and F' solving), the shards of one card, and
+# the longest a gloo rank may take (its rendezvous and collectives wait 60 s)
+MESH_SHAPES = ((64, 4096, 10), (256, 32768, 10))
+MESH_SHARDS = (2, 4)
+RANK_S = 120.0
+PATHS["mesh"] = ("ba_linearize", "ba_solve", "ba_solve_blocked", "ba_update_cost",
+                 "ba_accept", "shard_reduce")
+
+
+def lm_counts(iters):
+    """(LM iterations, phases) of the BA schedule with one outlier round."""
+    from orbslam2_tpu_torch.ops import ba
+
+    rest = max(iters // 2, 1)
+    return iters + rest, len(ba._split(iters)) + len(ba._split(rest))
+
+
+def reprojection_medians(m, cam, kfs):
+    """Each keyframe's median reprojection error (px, level 0) over its
+    live map points."""
+    out = []
+    for kf in kfs:
+        T = m.kf_pose[kf]
+        feats = np.where(m.kf_mp[kf] >= 0)[0]
+        mps = m.kf_mp[kf, feats]
+        live = m.mp_valid[mps]
+        feats, mps = feats[live], mps[live]
+        pc = m.mp_pos[mps] @ T[:3, :3].T + T[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = cam.fx * pc[:, 0] / z + cam.cx
+        v = cam.fy * pc[:, 1] / z + cam.cy
+        out.append(float(np.median(np.hypot(u - m.kf_xy[kf, feats, 0],
+                                            v - m.kf_xy[kf, feats, 1]))))
+    return out
+
+
+def gloo_ranks(prob, cam, iters, world=2):
+    """``world`` smoke_worker processes, each a gloo rank holding CUDA
+    tensors on this card, a file:// rendezvous under a temporary directory;
+    each waits at most RANK_S seconds, then is killed. Returns each rank's
+    saved result."""
+    import tempfile
+
+    from orbslam2_tpu_torch.parallel import smoke_worker
+
+    payload = {f"cam_{f}": np.asarray(getattr(cam, f)) for f in cam._fields}
+    payload.update({f"prob_{f}": t.cpu().numpy() for f, t in zip(prob._fields, prob)})
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "prob.npz"), **payload)
+        out = os.path.join(tmp, "out.npz")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "orbslam2_tpu_torch.parallel.smoke_worker",
+             str(r), str(world), f"file://{tmp}/rendezvous",
+             os.path.join(tmp, "prob.npz"), out, "--device", "cuda",
+             "--backend", "gloo", "--iters", str(iters)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=RANK_S)
+                errs.append((p.returncode, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rc, err in errs:
+            check(rc == 0, f"mesh: a gloo rank failed ({rc}):\n{err[-2000:]}")
+        return [dict(np.load(smoke_worker.out_path(out, r))) for r in range(world)]
+
+
+def mesh_path(dev, record, loop_args):
+    """Phase 11, the landmark-sharded global BA on one card. The path, its
+    counts set to 0 just before and read just after: (a) the mesh of 2 and
+    4 shards of the card at both MESH_SHAPES (each solve's launches: E, G
+    and H once a shard an LM iteration, F or F' once, shard_reduce twice
+    and once a phase); (b) LoopCloser.global_bundle_adjustment(use_mesh=True)
+    over 4 shards on the circuit's map as phase 7's GBA found it, written
+    back, reprojection medians < 1 px; (c) a one-rank NCCL group through
+    parallel/distributed.py's all-reduce. Then, outside the counts: each
+    mesh against the plain sharded schedule and the one-shard kernel
+    schedule within ba_parity.LIMITS, the 4-shard mesh's second call the
+    same bits, shard_reduce bit-exact against its plain twin on the rows
+    the K = 256 mesh summed (its row), two gloo ranks sharing the card
+    against (a)'s 2-shard result, across the first cards where there are
+    several, and ms per LM iteration for 1, 2 and 4 shards. Returns
+    (counts, the "mesh" line's fields)."""
+    from datetime import timedelta
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.kernels import shard_reduce
+    from orbslam2_tpu_torch.loop_closing import LoopCloser
+    from orbslam2_tpu_torch.map.keyframe_database import KeyFrameDatabase
+    from orbslam2_tpu_torch.models.camera import Camera
+    from orbslam2_tpu_torch.ops import ba
+    from orbslam2_tpu_torch.parallel import distributed, sharded_ba
+    from orbslam2_tpu_torch.utils import ba_parity, slices
+    from orbslam2_tpu_torch.utils.convert import map_state_from_numpy
+    from orbslam2_tpu_torch.utils.synthetic import ba_window
+
+    t_phase = time.perf_counter()
+    cam = Camera.create(FX, FX, W / 2, H / 2, bf=52.0, width=W, height=H)
+    probs = {K: ba.BAProblem(*(torch.from_numpy(a).to(dev)
+                               for a in ba_window(K, M, 8, seed=K)))
+             for K, M, _ in MESH_SHAPES}
+    meshes = {n: sharded_ba.make_landmark_mesh([dev] * n) for n in MESH_SHARDS}
+    fields = dict(card=card_line(), shapes={}, note=(
+        "ms per LM iteration of shards of ONE card: the overhead of sharding "
+        "(more launches, the reduction), not scaling"))
+
+    # ---- the path ------------------------------------------------------------
+    kernels.reset_launches()
+    rk, per_solve, rows = {}, {}, {}
+    for K, M, iters in MESH_SHAPES:
+        for n in MESH_SHARDS:
+            shards = sharded_ba.shard_problem(meshes[n], probs[K])
+            before = kernels.launch_counts()
+            with Capture(shard_reduce, "shard_reduce",
+                         lambda a, k: a[0].shape[1] > 1) as cap_s, \
+                    Capture(shard_reduce, "shard_reduce",
+                            lambda a, k: a[0].shape[1] == 1) as cap_c:
+                rk[K, n] = sharded_ba.make_sharded_ba(meshes[n], iters=iters)(
+                    cam, shards)
+            after = kernels.launch_counts()
+            per_solve[K, n] = {k: after[k] - before[k] for k in after
+                               if after[k] != before[k]}
+            rows[K, n] = (cap_s.args[0][0], cap_c.args[0][0])
+
+    # (b) the loop closer's mesh path on the circuit's map before its GBA
+    cfg = slices.config("circuit")
+    c = cfg.camera
+    ccam = Camera.create(c.fx, c.fy, c.cx, c.cy, bf=c.bf, width=c.width,
+                         height=c.height)
+    m = map_state_from_numpy(cfg, loop_args["map_before_gba"], device=dev)
+    lc = LoopCloser(cfg, m, ccam, KeyFrameDatabase(m, device=dev))
+    _, kfs, _, _, _ = lc._gba_gather(None, None, 8)
+    med_before = reprojection_medians(m, ccam, kfs)
+    with Capture(lc, "_gba_solve_mesh") as cap_gba:
+        lc.global_bundle_adjustment(use_mesh=True, mesh=meshes[4])
+    gba_prob = cap_gba.args[0][0]
+    gba_res = cap_gba.result
+
+    # (c) a one-rank NCCL group through the all-reduce
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                 world_size=1, rank=0,
+                                 timeout=timedelta(seconds=distributed.RENDEZVOUS_S))
+        try:
+            gmesh = distributed.global_landmark_mesh(dev)
+            check(isinstance(gmesh, distributed.DistributedMesh),
+                  "mesh: the NCCL group is not a DistributedMesh")
+            K0, _, it0 = MESH_SHAPES[0]
+            r_nccl = sharded_ba.make_sharded_ba(gmesh, iters=it0)(
+                cam, distributed.shard_problem_global(gmesh, probs[K0]))
+            torch.cuda.synchronize()
+        finally:
+            tdist.destroy_process_group()
+    counts = kernels.launch_counts()
+
+    # ---- (a) held against the plain sharded schedule and one shard -------------
+    for K, M, iters in MESH_SHAPES:
+        n_lm, n_phases = lm_counts(iters)
+        r1 = ba.optimize_ba(cam, probs[K], iters=iters, outlier_rounds=1)
+        shape = dict(n_lm=n_lm)
+        for n in MESH_SHARDS:
+            f_name = "ba_solve" if K <= 64 else "ba_solve_blocked"
+            want = {"ba_linearize": n * n_lm, f_name: n_lm, "ba_accept": n * n_lm,
+                    "ba_update_cost": n * (n_lm + n_phases + 2),
+                    "shard_reduce": 2 * n_lm + n_phases}
+            check(per_solve[K, n] == want,
+                  f"mesh K={K} n={n}: launches {per_solve[K, n]}, want {want}")
+            shards = sharded_ba.shard_problem(meshes[n], probs[K])
+            rp = sharded_ba.make_sharded_ba(meshes[n], iters=iters, plain=True)(
+                cam, shards)
+            vs_plain = ba_parity.compare(cam, probs[K], rk[K, n], rp)
+            vs_one = ba_parity.compare(cam, probs[K], rk[K, n], r1)
+            check(not ba_parity.over_limits(vs_plain) and not ba_parity.over_limits(vs_one),
+                  f"mesh K={K} n={n}: vs plain {vs_plain}, vs one shard {vs_one}")
+            again = sharded_ba.make_sharded_ba(meshes[n], iters=iters)(cam, shards)
+            same = all(torch.equal(a, b) for a, b in zip(rk[K, n], again))
+            check(same, f"mesh K={K} n={n}: a second call gave other bits")
+            for x in rows[K, n]:
+                check(torch.equal(shard_reduce.shard_reduce(x),
+                                  shard_reduce.shard_reduce_plain(x)),
+                      f"kernel shard_reduce not bit-exact on {tuple(x.shape)}")
+            L = rows[K, n][0].shape[1]
+            shape[n] = dict(vs_plain=vs_plain, vs_one_shard=vs_one,
+                            second_call_same_bits=same, launches=per_solve[K, n],
+                            reduce_bytes_per_iteration=4 * (n + 1) * (L + 2))
+            print(f"mesh K={K} M={M} n={n}: vs plain poses {vs_plain['poses']:.2e} "
+                  f"points {vs_plain['points']:.2e} reproj {vs_plain['reproj']:.2e} "
+                  f"px cost {vs_plain['cost']:.2e}; vs one shard poses "
+                  f"{vs_one['poses']:.2e} points {vs_one['points']:.2e}; second "
+                  f"call same bits {same}; launches {per_solve[K, n]}")
+        # ms per LM iteration, each solve between CUDA events
+        ms = {1: cuda_ms(lambda: ba.optimize_ba(cam, probs[K], iters=iters,
+                                                outlier_rounds=1), reps=3, warmup=1)}
+        for n in MESH_SHARDS:
+            fn = sharded_ba.make_sharded_ba(meshes[n], iters=iters)
+            shards = sharded_ba.shard_problem(meshes[n], probs[K])
+            ms[n] = cuda_ms(lambda: fn(cam, shards), reps=3, warmup=1)
+        shape["ms_per_lm_iteration"] = {n: v / n_lm for n, v in ms.items()}
+        fields["shapes"][f"K={K} M={M} O=8"] = shape
+
+    # ---- shard_reduce's row: the K = 256 4-shard mesh's summed rows ---------
+    x = rows[MESH_SHAPES[-1][0], 4][0]
+    n, L = x.shape
+    err = (shard_reduce.shard_reduce(x) - shard_reduce.shard_reduce_plain(x)).abs().max()
+    record(shard_reduce, err.item(), lambda: shard_reduce.shard_reduce(x),
+           cuda_ms(lambda: shard_reduce.shard_reduce_plain(x)),
+           f"bit-exact; n={n} shards, L={L} (S | b_S at K={MESH_SHAPES[-1][0]}); "
+           f"library: torch.sum(x, dim=0)",
+           library_ms=cuda_ms(lambda: torch.sum(x, dim=0)),
+           # n rows read once, one row written; n - 1 additions an element
+           n_bytes=4 * (n + 1) * L, n_ops=(n - 1) * L)
+
+    # ---- (b) the loop closer: written back, sub-pixel -------------------------
+    _, kfs, mp_ids, opt_mask, n_ids = lc._gba_gather(None, None, 8)
+    med_after = reprojection_medians(lc.map, ccam, kfs)
+    written = (np.array_equal(lc.map.kf_pose[np.asarray(kfs)[opt_mask]],
+                              gba_res.poses.cpu().numpy()[opt_mask])
+               and np.array_equal(lc.map.mp_pos[mp_ids],
+                                  gba_res.points.cpu().numpy()[:n_ids]))
+    check(written, "mesh: the loop closer's mesh GBA was not written back")
+    check(gba_res.points.shape[0] % 4 == 0, "mesh: the GBA problem was not padded")
+    check(max(med_after) < 1.0, f"mesh: reprojection medians {max(med_after)} px")
+    fields["loop_closer"] = dict(
+        K=int(gba_prob.poses.shape[0]), M=int(gba_prob.points.shape[0]),
+        M_padded=int(gba_res.points.shape[0]), shards=4,
+        median_px_before=max(med_before), median_px_after=max(med_after))
+
+    # ---- (c) the NCCL group and two gloo ranks ---------------------------------
+    K0, _, it0 = MESH_SHAPES[0]
+    r1 = ba.optimize_ba(cam, probs[K0], iters=it0, outlier_rounds=1)
+    vs_nccl = ba_parity.compare(cam, probs[K0], r_nccl, r1)
+    check(not ba_parity.over_limits(vs_nccl), f"mesh: one-rank NCCL {vs_nccl}")
+    t = time.perf_counter()
+    ranks = gloo_ranks(probs[K0], cam, it0)
+    rank_s = time.perf_counter() - t
+    check(all(np.array_equal(r["poses"], ranks[0]["poses"]) for r in ranks),
+          "mesh: the gloo ranks hold different poses")
+    got = ba.BAResult(
+        poses=torch.from_numpy(ranks[0]["poses"]).to(dev),
+        points=torch.from_numpy(np.concatenate([r["points"] for r in ranks])).to(dev),
+        obs_inlier=torch.from_numpy(np.concatenate([r["obs_inlier"] for r in ranks])).to(dev),
+        cost=torch.tensor(float(ranks[0]["cost"]), device=dev))
+    vs_gloo = ba_parity.compare(cam, probs[K0], got, rk[K0, 2])
+    check(not ba_parity.over_limits(vs_gloo), f"mesh: gloo ranks vs the mesh {vs_gloo}")
+    fields["nccl_one_rank_vs_one_shard"] = vs_nccl
+    fields["nccl_same_bits_as_one_shard"] = all(
+        torch.equal(a, b) for a, b in zip(r_nccl, r1))
+    fields["gloo_2_ranks_vs_2_shards"] = vs_gloo
+    fields["gloo_s"] = rank_s
+
+    # ---- (d) across cards, where the machine has several -------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = sharded_ba.make_landmark_mesh(
+            [torch.device("cuda", i) for i in range(min(4, n_cards))])
+        shards = sharded_ba.shard_problem(cards, probs[K0])
+        rc = sharded_ba.make_sharded_ba(cards, iters=it0)(cam, shards)
+        rp = sharded_ba.make_sharded_ba(cards, iters=it0, plain=True)(cam, shards)
+        vs = ba_parity.compare(cam, probs[K0], rc, rp)
+        check(not ba_parity.over_limits(vs), f"mesh across {cards.size} cards: {vs}")
+        fields["across_cards"] = dict(cards=cards.size, vs_plain=vs)
+    else:
+        fields["across_cards"] = "1 card visible: not run"
+    fields["phase_s"] = time.perf_counter() - t_phase
+    return counts, fields
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3303,19 +3647,21 @@ def main():
         are timed each way (fewer for a call of seconds). ``batched`` rows
         (phase 10's: the profiler recorded none of Y's launches at training
         shape in 4 of 5 runs) take device_ms from batch_ms over ``reps`` calls instead of the
-        profiler; the row's ``device_ms_by`` says which. Returns the
-        row."""
+        profiler, as does a row that no profile recorded (``device_ms``);
+        the row's ``device_ms_by`` says which. Returns the row."""
         ms = cuda_ms(fn, reps=reps, warmup=min(3, reps))
         if batched:
             dev_ms = batch_ms(fn, reps)
             by = f"CUDA events around {reps} back-to-back calls"
         else:
-            dev_ms = device_ms(fn, mod.FUNCTION if function == "" else function,
-                               reps=reps, per_call=per_call)
-            by = "torch.profiler"
+            key = mod.FUNCTION if function == "" else function
+            dev_ms = device_ms(fn, key, reps=reps, per_call=per_call)
+            by = profile_fallbacks.pop(key, "torch.profiler")
         bound_ms, bound_by = bound_override or bound(n_bytes, n_ops)
         seen, launched = ((None, None) if batched else
                           profile_gaps.pop(mod.FUNCTION, (reps * per_call,) * 2))
+        if by != "torch.profiler" and not batched:
+            seen = 0
         rows.append(dict(name=mod.NAME, route="cuda", source=mod.SOURCE,
                          replaces=mod.REPLACES, max_abs_err=float(err),
                          ms=ms, device_ms=dev_ms, device_ms_by=by,
@@ -3325,7 +3671,7 @@ def main():
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         part = ("" if seen == launched else
                 f", from a profile that recorded {seen} of {launched} launches")
-        if batched:
+        if by != "torch.profiler":
             part = f", {by}"
         print(f"kernel {mod.NAME}: {note}; {ms:.4f} ms a call (device "
               f"{dev_ms:.4f} ms{part}) vs plain {plain_ms:.4f} ms{lib}, bound "
@@ -3473,7 +3819,8 @@ def main():
     pose_graph_cg_launches(dev)
     front_rows(dev, record, img0, frames[0][1], feats, cam)
     print(f"device times: {len(rows)} kernels; profiles that missed launches "
-          f"(kernel, events, launches): {profile_retries or 'none'}")
+          f"(kernel, events, launches, margin events kept before and after, "
+          f"of {MARGIN} each): {profile_retries or 'none'}")
 
     # ---- hot path: extraction + fused cascade per frame --------------------
     # (the reference bench's hot-path definition) against kernel C's local
@@ -3538,11 +3885,15 @@ def main():
     # ---- phase 10: the offline and dataset surfaces ----------------------------
     path_counts["vocab"], vocab_args, vocab_fields = vocab_path(dev)
     vocab_fields.update(surfaces_path(slam, frames, poses, pairs, pair_poses))
+
+    # ---- phase 11: the landmark-sharded global BA ------------------------------
+    path_counts["mesh"], mesh_fields = mesh_path(dev, record, loop_args)
+    print("mesh " + json.dumps(mesh_fields, default=str))
     for path, names in PATHS.items():
         for name in names:
             check(path_counts[path][name] > 0,
                   f"kernel {name} never launched on the {path} path")
-    for path in ("loop", "scale", "async", "vocab"):
+    for path in ("loop", "scale", "async", "vocab", "mesh"):
         launched = {k for k, v in path_counts[path].items() if v > 0}
         check(launched == set(PATHS[path]),
               f"the {path} path launched {sorted(launched ^ set(PATHS[path]))} "
@@ -3558,8 +3909,8 @@ def main():
     scale_fields["rows_s"] = time.perf_counter() - t_rows
     print("scale " + json.dumps(scale_fields))
     print(f"device times of U, V, W, X, Y, Z, K, M, P, P': profiles that missed "
-          f"launches (kernel, events, launches): "
-          f"{profile_retries[n_retries:] or 'none'}")
+          f"launches (kernel, events, launches, margin events kept before and "
+          f"after, of {MARGIN} each): {profile_retries[n_retries:] or 'none'}")
     # Y's training launches go to its row at training shape
     total = {mod.NAME: sum(c[mod.NAME] for p, c in path_counts.items()
                            if p != "vocab" or mod.NAME != "bow_words")

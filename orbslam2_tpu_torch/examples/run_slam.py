@@ -101,7 +101,10 @@ def frames_of(mode: str, sequence: str, cfg, rectifier=None):
     """(track method name, its image arguments, timestamp) of each frame of
     the sequence in ``mode``; EuRoC stereo frames are rectified by
     ``rectifier``, by default with the settings' LEFT./RIGHT. blocks where
-    the file has them."""
+    the file has them. A EuRoC stereo frame without a right image is
+    skipped, as the reference's evaluation harness skips it (a named
+    divergence from the reference runner, which hands it to
+    ``track_monocular`` and fails on the stereo system)."""
     if mode == "tum-rgbd":
         for ts, img, depth in datasets.tum_rgbd_sequence(
                 sequence, cfg.camera.depth_map_factor or 5000.0):
@@ -121,12 +124,12 @@ def frames_of(mode: str, sequence: str, cfg, rectifier=None):
 
             rectifier = YamlRectifier(cfg.stereo_rectify)
         for ts, left, right in datasets.euroc_sequence(sequence, stereo):
-            if stereo and right is not None:
+            if not stereo:
+                yield "track_monocular", (left,), ts
+            elif right is not None:
                 if rectifier is not None:
                     left, right = rectifier(left, right)
                 yield "track_stereo", (left, right), ts
-            else:
-                yield "track_monocular", (left,), ts
 
 
 def run_frames(mode: str, sequence: str, cfg, slam, times, max_frames: int = 0,

@@ -37,6 +37,7 @@ asynchronous system launches from several threads):
   ba_solve_blocked F' blocked multi-block Cholesky     (ops/ba.py past 6K = 384, kernel P)
   pose_chain      R' pipelined pose chain: prediction, link (tracking.py)
   vocab_update    Y' k-means majority-vote update    (ops/bow.py vocabulary training)
+  shard_reduce       landmark shards' sums, in order (ops/ba.py sharded, parallel/sharded_ba.py)
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel (built by ``build.library()`` at first use) or raises.
@@ -47,8 +48,8 @@ from . import (ba_accept, ba_linearize, ba_solve, ba_solve_blocked,
                describe, fast_score, fuse_match, hamming, match_rot,
                orb_select, pnp_ransac, point_attrs, pose_chain, pose_graph,
                pose_graph_cg, pose_lm, project_gate, pyramid, rgbd_depth,
-               sim3_opt, sim3_ransac, sim3_search, stereo_match, stereo_sad,
-               triangulate, two_view, vocab_update)
+               shard_reduce, sim3_opt, sim3_ransac, sim3_search, stereo_match,
+               stereo_sad, triangulate, two_view, vocab_update)
 
 KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            ba_update_cost, ba_accept, pyramid, orb_select, rgbd_depth,
@@ -56,7 +57,7 @@ KERNELS = (fast_score, describe, hamming, pose_lm, ba_linearize, ba_solve,
            triangulate, fuse_match, match_rot, stereo_match, stereo_sad,
            two_view, bow_words, pnp_ransac, sim3_ransac, sim3_opt,
            sim3_search, pose_graph, ba_solve_blocked, pose_graph_cg,
-           pose_chain, vocab_update)
+           pose_chain, vocab_update, shard_reduce)
 
 
 def reset_launches():

@@ -3,8 +3,14 @@ the camera system.
 
 Replaces ``orbslam2_tpu/ops/ba.py``: ``_project_t`` and the normal-equation
 and Schur-complement half of ``_build_and_solve``. CUDA source:
-``csrc/ba.cu`` (``ba_linearize_kernel``: eight lanes per landmark, one per
-observation slot; S accumulated with float atomics).
+``csrc/ba.cu``, a memset and three launches: ``ba_linearize_kernel``
+(eight lanes per landmark, one per observation slot) writes each
+observation's blocks and raises its camera's bounds on them;
+``ba_linearize_pairs_kernel`` (lane o1 of a landmark, over every o2) adds
+each pair's terms into 64-bit fixed point below its camera block's bound
+(integer atomics); ``ba_linearize_sum_kernel`` writes S and b_S. No float
+atomics: S is the same from run to run, each term within 2^-41 of its
+block's bound.
 
 Per observation: residual r, Jacobians Jp (3x6, left twist, clamped depth)
 and Jl (3x3), and the weight w (Huber or 1, over sigma^2; 0 outside the
@@ -25,7 +31,7 @@ O <= 8 observation slots (the reference's largest global-BA bucket,
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,7 +39,8 @@ from . import build
 from ..models.camera import Camera
 
 NAME = "ba_linearize"
-FUNCTION = "ba_linearize_kernel"  # the __global__ function it launches
+FUNCTION = "ba_linearize"  # its __global__ functions ba_linearize{,_pairs,_sum}_kernel
+LAUNCHES_PER_CALL = 3
 SOURCE = "orbslam2_tpu_torch/kernels/csrc/ba.cu"
 REPLACES = "orbslam2_tpu/ops/ba.py:243"
 launches = 0
@@ -137,7 +144,11 @@ def damped_inv3(D, lam, point_valid):
 
 
 def ba_linearize_plain(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
-                       obs_sigma2, obs_mask, lam, use_huber: bool) -> Linearized:
+                       obs_sigma2, obs_mask, lam, use_huber: bool,
+                       out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Linearized:
+    """With ``out`` (S, b_S) the system is also written there and returned
+    as those tensors."""
     K = poses.shape[0]
     M, O = obs_kf.shape
     valid = effective_mask(obs_kf, obs_mask, point_valid)
@@ -177,16 +188,24 @@ def ba_linearize_plain(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
     b_o = (Jpw_t @ r_c)[..., 0] - (ED @ b_l[:, None, :, None])[..., 0]
     b_S = torch.zeros((K, 6), dtype=poses.dtype, device=poses.device)
     b_S.index_add_(0, k.reshape(-1), b_o.reshape(-1, 6))
-    return Linearized(S, b_S.reshape(6 * K), E, Dinv, b_l)
+    b_S = b_S.reshape(6 * K)
+    if out is not None:
+        S, b_S = out[0].copy_(S), out[1].copy_(b_S)
+    return Linearized(S, b_S, E, Dinv, b_l)
 
 
 def ba_linearize(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
-                 obs_sigma2, obs_mask, lam, use_huber: bool) -> Linearized:
+                 obs_sigma2, obs_mask, lam, use_huber: bool,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> Linearized:
     """Kernel E on CUDA tensors, the plain version on CPU tensors. ``lam``
-    is a (1,) tensor on the device, read by the kernel."""
+    is a (1,) tensor on the device, read by the kernel. ``out``: (S (6K,
+    6K), b_S (6K,)) tensors the system is written into (a shard's row of a
+    packed buffer)."""
     if points.device.type == "cpu":
         return ba_linearize_plain(cam, poses, points, point_valid, obs_kf,
-                                  obs_uvr, obs_sigma2, obs_mask, lam, use_huber)
+                                  obs_uvr, obs_sigma2, obs_mask, lam, use_huber,
+                                  out=out)
     dev = points.device
     K = poses.shape[0]
     M, O = obs_kf.shape
@@ -201,15 +220,21 @@ def ba_linearize(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
         ("obs_mask", obs_mask, torch.bool, (M, O)),
         ("lam", lam, torch.float32, (1,))))
     f32 = dict(dtype=torch.float32, device=dev)
-    out = Linearized(torch.empty((6 * K, 6 * K), **f32),
-                     torch.empty(6 * K, **f32), torch.empty((M, O, 6, 3), **f32),
+    if out is None:
+        out = (torch.empty((6 * K, 6 * K), **f32), torch.empty(6 * K, **f32))
+    build.expect(NAME, dev, (("S", out[0], torch.float32, (6 * K, 6 * K)),
+                             ("b_S", out[1], torch.float32, (6 * K,))))
+    res = Linearized(out[0], out[1], torch.empty((M, O, 6, 3), **f32),
                      torch.empty((M, 3, 3), **f32), torch.empty((M, 3), **f32))
-    err = build.library().osl_ba_linearize(
+    lib = build.library()
+    work = torch.empty(lib.osl_ba_linearize_work_bytes(K, M, O),
+                       dtype=torch.uint8, device=dev)
+    err = lib.osl_ba_linearize(
         poses.data_ptr(), points.data_ptr(), point_valid.data_ptr(),
         obs_kf.data_ptr(), obs_uvr.data_ptr(), obs_sigma2.data_ptr(),
         obs_mask.data_ptr(), lam.data_ptr(), K, M, O, cam.fx, cam.fy, cam.cx,
-        cam.cy, cam.bf, int(use_huber), *(t.data_ptr() for t in out),
-        build.stream_handle(dev))
+        cam.cy, cam.bf, int(use_huber), work.data_ptr(),
+        *(t.data_ptr() for t in res), build.stream_handle(dev))
     build.check(err, NAME)
     build.count_launch(__name__)
-    return out
+    return res

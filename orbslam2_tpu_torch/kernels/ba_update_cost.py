@@ -47,7 +47,8 @@ def _moved_points(points, point_valid, obs_kf, step):
 
 def ba_update_cost_plain(cam: Camera, poses, points, point_valid, obs_kf,
                          obs_uvr, obs_sigma2, obs_valid, obs_mask,
-                         use_huber: bool, step: Optional[tuple] = None
+                         use_huber: bool, step: Optional[tuple] = None,
+                         cost_out: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if step is not None:
         points = _moved_points(points, point_valid, obs_kf, step)
@@ -55,20 +56,25 @@ def ba_update_cost_plain(cam: Camera, poses, points, point_valid, obs_kf,
     chi2, rho, delta2 = chi2_rho(r, obs_sigma2, obs_uvr, use_huber)
     mask = effective_mask(obs_kf, obs_mask, point_valid)
     cost = torch.where(mask, rho, torch.zeros_like(rho)).sum().reshape(1)
+    if cost_out is not None:
+        cost = cost_out.copy_(cost)
     inlier = effective_mask(obs_kf, obs_valid, point_valid) & (chi2 <= delta2)
     return points, cost, inlier
 
 
 def ba_update_cost(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
                    obs_sigma2, obs_valid, obs_mask, use_huber: bool,
-                   step: Optional[tuple] = None
+                   step: Optional[tuple] = None,
+                   cost_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel G on CUDA tensors, the plain version on CPU tensors. Without
-    a step the returned points are ``points`` itself."""
+    a step the returned points are ``points`` itself. ``cost_out``: the
+    (1,) tensor the cost is written into (a shard's row of a packed
+    buffer), returned as the cost."""
     if points.device.type == "cpu":
         return ba_update_cost_plain(cam, poses, points, point_valid, obs_kf,
                                     obs_uvr, obs_sigma2, obs_valid, obs_mask,
-                                    use_huber, step)
+                                    use_huber, step, cost_out)
     dev = points.device
     K = poses.shape[0]
     M, O = obs_kf.shape
@@ -88,7 +94,9 @@ def ba_update_cost(cam: Camera, poses, points, point_valid, obs_kf, obs_uvr,
                   ("b_l", step[3], torch.float32, (M, 3))]
     build.expect(NAME, dev, specs)
     points_n = points if step is None else torch.empty_like(points)
-    cost = torch.empty(1, dtype=torch.float32, device=dev)
+    cost = (torch.empty(1, dtype=torch.float32, device=dev) if cost_out is None
+            else cost_out)
+    build.expect(NAME, dev, (("cost", cost, torch.float32, (1,)),))
     inlier = torch.empty((M, O), dtype=torch.bool, device=dev)
     # one partial cost per block, and the blocks' completion counter
     n_blocks = -(-M // LANDMARKS_PER_BLOCK)

@@ -51,7 +51,8 @@ _SIGNATURES = {
     "osl_hamming_top2_gated": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 4 + [_P, _I]
     + [_P] * 5,
     "osl_pose_lm": [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P, _I] + [_P] * 5,
-    "osl_ba_linearize": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 6,
+    "osl_ba_linearize_work_bytes": [_I] * 3,
+    "osl_ba_linearize": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 7,
     "osl_ba_solve": [_P] * 5 + [_I] + [_P] * 4,
     "osl_ba_update_cost": [_P] * 12 + [_I] * 3 + [_F] * 5 + [_I] + [_P] * 5,
     "osl_ba_accept": [_P] * 7 + [_I, _I, _P],
@@ -91,6 +92,7 @@ _SIGNATURES = {
     "osl_pose_graph": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "osl_pose_graph_cg": [_P] * 10 + [_I] * 5 + [_P] * 4,
     "osl_pose_chain": [_P, _P, _I, _P, _P],
+    "osl_shard_reduce": [_P, _I, ctypes.c_longlong, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

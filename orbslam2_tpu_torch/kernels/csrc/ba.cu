@@ -1,23 +1,40 @@
 // Kernels E-H: one Levenberg-Marquardt iteration of bundle adjustment with
-// the landmark Schur complement, as four launches on the caller's stream.
+// the landmark Schur complement, as launches on the caller's stream.
 //
 // Replaces orbslam2_tpu/ops/ba.py: optimize_ba_impl (with _project_t,
 // _robust_t, _cost_t, _build_and_solve, _schur_solve and _apply). The JAX
 // program keeps an observation-last layout and reduces over cameras with
 // one-hot matmuls and two dense (6K, 3M) products on the TPU's matrix unit;
-// here each landmark owns its observations and scatters its blocks.
+// here each landmark owns its observations and adds its pairs' blocks to
+// the camera system in fixed point.
 //
 //   E ba_linearize_kernel   8 lanes per landmark (one per observation slot,
 //                           O <= 8), 16 landmarks per block. Each lane
 //                           projects its observation, forms Jp, Jl and the
-//                           robust weight, adds Jp^T w Jp and Jp^T w r to its
-//                           camera's block of S and b_S (float atomics), and
-//                           E = Jp^T w Jl to shared memory. The group sums D
-//                           and b_l with shuffles in a fixed order, every lane
-//                           forms the damped adjugate inverse, and then lane
-//                           o1 adds -E_o1 D^-1 E_o2^T for every observation
-//                           o2 of its landmark to block (k(o1), k(o2)) and
-//                           -E_o1 D^-1 b_l to b_S. Writes E, D^-1, b_l.
+//                           robust weight, and writes E = Jp^T w Jl and its
+//                           diagonal block Jp^T w Jp. The group sums D and
+//                           b_l with shuffles in a fixed order, every lane
+//                           forms the damped adjugate inverse, and then
+//                           writes E D^-1, its b_S term Jp^T w r -
+//                           E D^-1 b_l and its camera (-1 when it does not
+//                           count). Writes E, D^-1, b_l.
+//                           Each camera's largest finite |E D^-1|, |E|,
+//                           |Jp^T w Jp| and |b_S term| (integer atomics on
+//                           the float bits) bound every term of its blocks.
+//     ba_linearize_pairs_kernel
+//                           the camera system in fixed point: lane o1 of a
+//                           landmark adds -E_o1 D^-1 E_o2^T (plus Jp^T w Jp
+//                           where o2 = o1) for every observation o2 to block
+//                           (k(o1), k(o2)), and its b_S term, each entry
+//                           rounded to kFixedBits bits below the block's
+//                           bound into a 64-bit integer (integer atomics:
+//                           the sum has no order); NaN and infinite terms
+//                           are marked instead.
+//     ba_linearize_sum_kernel
+//                           writes S and b_S from the integer sums (IEEE's
+//                           NaN or infinity where a term was marked). S is
+//                           the same from run to run, each term within
+//                           2^-41 of its block's bound.
 //   F ba_solve_kernel       one block of 1024 threads: fixed cameras,
 //                           damping, symmetrisation into a 6K x 6K device
 //                           workspace (L2-resident), a left-looking blocked
@@ -40,11 +57,9 @@
 //
 // Bound on the H100: latency, not bytes or operations. At the local-BA
 // shape (K = 16, M = 1024, O = 8) an iteration is ~15 MFLOP and ~1 MB, a
-// few microseconds of the card's peak; the dependent chain of four launches
-// and F's serial panel steps and triangular solves set the time. S is
-// accumulated with float atomics, so its rounding (and hence the iterate
-// in the last bits) varies from run to run; every other sum is in a fixed
-// order. Built without FMA contraction.
+// few microseconds of the card's peak; the dependent chain of launches and
+// F's serial panel steps and triangular solves set the time. No sum uses
+// float atomics. Built without FMA contraction.
 #include "common.cuh"
 
 namespace {
@@ -55,6 +70,11 @@ constexpr int kThreads = kSlots * kLandmarksPerBlock;
 constexpr int kSolveThreads = 1024;
 constexpr int kMaxN = 6 * 64;             // 6K for K <= 64
 constexpr int kPanel = 32;                // Cholesky panel width
+// a term of the camera system in fixed point: |term| < 2^e for its block's
+// bound f 2^e (frexp), rounded to 2^(e - kFixedBits); an entry sums at most
+// MAX_M * O * O = 2^21 terms, so |sum| < 2^62
+constexpr int kFixedBits = 41;
+constexpr int kSumThreads = 256;
 constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -108,8 +128,12 @@ __device__ __forceinline__ float rho(float chi2, bool huber, float delta2) {
                         : 2.0f * sqrtf(delta2 * fmaxf(chi2, 1e-12f)) - delta2;
 }
 
+__device__ __forceinline__ float finite_abs(float v) {
+  return isfinite(v) ? fabsf(v) : 0.0f;
+}
+
 // ---------------------------------------------------------------------------
-// E: linearise and reduce to the camera system
+// E: linearise, then sum the camera system in fixed point
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 ba_linearize_kernel(const float* __restrict__ poses,
@@ -119,25 +143,26 @@ ba_linearize_kernel(const float* __restrict__ poses,
                     const float* __restrict__ obs_uvr,
                     const float* __restrict__ obs_sigma2,
                     const uint8_t* __restrict__ obs_mask,
-                    const float* __restrict__ lam_p, int K, int M, int O,
-                    Cam cam, int huber, float* __restrict__ S,
-                    float* __restrict__ b_S, float* __restrict__ E_out,
-                    float* __restrict__ Dinv_out, float* __restrict__ bl_out) {
-  __shared__ float sE[kLandmarksPerBlock][kSlots][18];
-  __shared__ int sK[kLandmarksPerBlock][kSlots];
+                    const float* __restrict__ lam_p, int M, int O, Cam cam,
+                    int huber, float* __restrict__ E_out,
+                    float* __restrict__ Dinv_out, float* __restrict__ bl_out,
+                    float* __restrict__ ED_out, float* __restrict__ Hd_out,
+                    float* __restrict__ bo_out, int* __restrict__ act_out,
+                    int* __restrict__ cam_max) {
   const int g = threadIdx.x / kSlots;       // landmark within the block
   const int o = threadIdx.x % kSlots;       // observation slot
   const int m = blockIdx.x * kLandmarksPerBlock + g;
-  const int n = 6 * K;
   const bool in_range = m < M && o < O;
   const int idx = m * O + o;
   const int kf = in_range ? obs_kf[idx] : -1;
   const bool pv = m < M && point_valid[m];
   const bool active = in_range && kf >= 0 && pv && obs_mask[idx];
 
-  float E[6][3], D[3][3], bl[3];
+  float E[6][3], D[3][3], bl[3], jr[6];
+  // the observation's largest finite |E D^-1|, |E|, |Jp^T w Jp|, |b_S term|
+  float mx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int c = 0; c < 6; ++c) E[c][0] = E[c][1] = E[c][2] = 0.0f;
+  for (int c = 0; c < 6; ++c) E[c][0] = E[c][1] = E[c][2] = jr[c] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     D[i][0] = D[i][1] = D[i][2] = 0.0f;
@@ -184,18 +209,23 @@ ba_linearize_kernel(const float* __restrict__ poses,
                    Jpix[i][2] * T[8 + j];
       }
     }
-    // the observation's camera block: Jp^T w Jp and Jp^T w r
-    float* Sk = S + (6 * kf) * n + 6 * kf;
+    // the observation's camera block Jp^T w Jp, its Jp^T w r and E
+    float* Hd = Hd_out + 36 * idx;
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
       const float a0 = Jp[0][c] * w, a1 = Jp[1][c] * w, a2 = Jp[2][c] * w;
 #pragma unroll
       for (int d = 0; d < 6; ++d) {
-        atomicAdd(Sk + c * n + d, a0 * Jp[0][d] + a1 * Jp[1][d] + a2 * Jp[2][d]);
+        const float h = a0 * Jp[0][d] + a1 * Jp[1][d] + a2 * Jp[2][d];
+        Hd[6 * c + d] = h;
+        mx[2] = fmaxf(mx[2], finite_abs(h));
       }
-      atomicAdd(b_S + 6 * kf + c, a0 * r[0] + a1 * r[1] + a2 * r[2]);
+      jr[c] = a0 * r[0] + a1 * r[1] + a2 * r[2];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) E[c][j] = a0 * Jl[0][j] + a1 * Jl[1][j] + a2 * Jl[2][j];
+      for (int j = 0; j < 3; ++j) {
+        E[c][j] = a0 * Jl[0][j] + a1 * Jl[1][j] + a2 * Jl[2][j];
+        mx[1] = fmaxf(mx[1], finite_abs(E[c][j]));
+      }
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -205,12 +235,6 @@ ba_linearize_kernel(const float* __restrict__ poses,
       bl[i] = a0 * r[0] + a1 * r[1] + a2 * r[2];
     }
   }
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) sE[g][o][3 * c + j] = E[c][j];
-  }
-  sK[g][o] = active ? kf : -1;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -235,38 +259,30 @@ ba_linearize_kernel(const float* __restrict__ poses,
 #pragma unroll
     for (int s = 0; s < 3; ++s) Di[r][s] = Di[r][s] * inv_det;
   }
-  __syncthreads();
 
   if (active) {
-    float ED[6][3];
+    // E D^-1 and the observation's b_S term Jp^T w r - E D^-1 b_l
+    float* EDo = ED_out + 18 * idx;
 #pragma unroll
     for (int c6 = 0; c6 < 6; ++c6) {
+      float ed[3];
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        ED[c6][j] = E[c6][0] * Di[0][j] + E[c6][1] * Di[1][j] + E[c6][2] * Di[2][j];
+        ed[j] = E[c6][0] * Di[0][j] + E[c6][1] * Di[1][j] + E[c6][2] * Di[2][j];
+        EDo[3 * c6 + j] = ed[j];
+        mx[0] = fmaxf(mx[0], finite_abs(ed[j]));
       }
-      atomicAdd(b_S + 6 * kf + c6,
-                -(ED[c6][0] * bl[0] + ED[c6][1] * bl[1] + ED[c6][2] * bl[2]));
+      const float b = jr[c6] + -(ed[0] * bl[0] + ed[1] * bl[1] + ed[2] * bl[2]);
+      bo_out[6 * idx + c6] = b;
+      mx[3] = fmaxf(mx[3], finite_abs(b));
     }
-    // -E_o D^-1 E_o2^T for every observation o2 of this landmark (o2 = o
-    // included), at block (k(o), k(o2))
-    for (int o2 = 0; o2 < O; ++o2) {
-      const int k2 = sK[g][o2];
-      if (k2 < 0) continue;
-      const float* E2 = sE[g][o2];
-      float* Sb = S + (6 * kf) * n + 6 * k2;
 #pragma unroll
-      for (int c6 = 0; c6 < 6; ++c6) {
-#pragma unroll
-        for (int d6 = 0; d6 < 6; ++d6) {
-          atomicAdd(Sb + c6 * n + d6,
-                    -(ED[c6][0] * E2[3 * d6] + ED[c6][1] * E2[3 * d6 + 1] +
-                      ED[c6][2] * E2[3 * d6 + 2]));
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      if (mx[i] > 0.0f) atomicMax(cam_max + 4 * kf + i, __float_as_int(mx[i]));
     }
   }
   if (in_range) {
+    act_out[idx] = active ? kf : -1;
     float* Eo = E_out + 18 * idx;
 #pragma unroll
     for (int c6 = 0; c6 < 6; ++c6) {
@@ -281,6 +297,123 @@ ba_linearize_kernel(const float* __restrict__ poses,
       for (int s = 0; s < 3; ++s) Dinv_out[9 * m + 3 * r + s] = Di[r][s];
       bl_out[3 * m + r] = bl[r];
     }
+  }
+}
+
+// The multiplier 2^(kFixedBits - e) of a sum whose terms are bounded by
+// f 2^e (f in [0.5, 1)); 0 for a bound of 0 (no finite term is non-zero).
+__device__ __forceinline__ double fixed_scale(double bound) {
+  if (!(bound > 0.0)) return 0.0;
+  int e;
+  frexp(bound, &e);
+  return ldexp(1.0, kFixedBits - e);
+}
+
+// The bound of block (k1, k2)'s terms: |sum_j u_j v_j| <= 3 max|u| max|v|,
+// plus Jp^T w Jp on the diagonal, with room for the terms' rounding.
+__device__ __forceinline__ double block_scale(const int* __restrict__ cam_max,
+                                              int k1, int k2) {
+  double b = 3.0 * static_cast<double>(__int_as_float(cam_max[4 * k1])) *
+             static_cast<double>(__int_as_float(cam_max[4 * k2 + 1]));
+  if (k1 == k2) b += static_cast<double>(__int_as_float(cam_max[4 * k1 + 2]));
+  return fixed_scale(b * (1.0 + 0x1p-10));
+}
+
+__device__ __forceinline__ double rhs_scale(const int* __restrict__ cam_max,
+                                            int k) {
+  return fixed_scale(static_cast<double>(__int_as_float(cam_max[4 * k + 3])) *
+                     (1.0 + 0x1p-10));
+}
+
+// One term into its sum: rounded to the sum's fixed point, or marked (1
+// NaN, 2 +inf, 4 -inf).
+__device__ __forceinline__ void add_term(float v, double scale,
+                                         unsigned long long* acc, int* mark) {
+  if (!isfinite(v)) {
+    atomicOr(mark, isnan(v) ? 1 : (v > 0.0f ? 2 : 4));
+  } else if (v != 0.0f) {
+    atomicAdd(acc, static_cast<unsigned long long>(
+                       llrint(static_cast<double>(v) * scale)));
+  }
+}
+
+// Lane o1 of landmark m: every pair (o1, o2) of its counted observations
+// into the sums of block (k(o1), k(o2)), S's entry (k1, c, k2, d) at
+// (k1 * K + k2) * 36 + 6 c + d, and its b_S term at 36 K^2 + 6 k1 + c.
+__global__ void __launch_bounds__(kThreads)
+ba_linearize_pairs_kernel(int M, int O, int K, const int* __restrict__ act,
+                          const float* __restrict__ E,
+                          const float* __restrict__ ED,
+                          const float* __restrict__ Hd,
+                          const float* __restrict__ bo,
+                          const int* __restrict__ cam_max,
+                          unsigned long long* __restrict__ acc,
+                          int* __restrict__ marks) {
+  const int o1 = threadIdx.x % kSlots;
+  const int m = blockIdx.x * kLandmarksPerBlock + threadIdx.x / kSlots;
+  if (m >= M || o1 >= O) return;
+  const int i1 = m * O + o1;
+  const int k1 = act[i1];
+  if (k1 < 0) return;
+  float u[18];
+#pragma unroll
+  for (int j = 0; j < 18; ++j) u[j] = ED[18 * i1 + j];
+  for (int o2 = 0; o2 < O; ++o2) {
+    const int i2 = m * O + o2;
+    const int k2 = act[i2];
+    if (k2 < 0) continue;
+    const int key = k1 * K + k2;
+    const double scale = block_scale(cam_max, k1, k2);
+    const float* v = E + 18 * i2;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+#pragma unroll
+      for (int d = 0; d < 6; ++d) {
+        const float pair = -(u[3 * c] * v[3 * d] + u[3 * c + 1] * v[3 * d + 1] +
+                             u[3 * c + 2] * v[3 * d + 2]);
+        const float t = o2 == o1 ? Hd[36 * i1 + 6 * c + d] + pair : pair;
+        add_term(t, scale, acc + 36 * key + 6 * c + d,
+                 marks + 36 * key + 6 * c + d);
+      }
+    }
+  }
+  const double scale = rhs_scale(cam_max, k1);
+  const int base = 36 * K * K + 6 * k1;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    add_term(bo[6 * i1 + c], scale, acc + base + c, marks + base + c);
+  }
+}
+
+// S (6K x 6K, row 6 k + c) and b_S from the sums: the IEEE sum of the
+// marked terms where there are any, else the fixed-point sum.
+__global__ void __launch_bounds__(kSumThreads)
+ba_linearize_sum_kernel(int K, const int* __restrict__ cam_max,
+                        const unsigned long long* __restrict__ acc,
+                        const int* __restrict__ marks, float* __restrict__ S,
+                        float* __restrict__ b_S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_s = 36 * K * K;
+  if (i >= n_s + 6 * K) return;
+  const int mk = marks[i];
+  const int k1 = i < n_s ? i / 36 / K : (i - n_s) / 6;
+  const int k2 = (i / 36) % K;
+  float v;
+  if ((mk & 1) || (mk & 6) == 6) {
+    v = __int_as_float(0x7fc00000);
+  } else if (mk) {
+    v = (mk & 2) ? INFINITY : -INFINITY;
+  } else {
+    const double scale = i < n_s ? block_scale(cam_max, k1, k2)
+                                 : rhs_scale(cam_max, k1);
+    const long long f = static_cast<long long>(acc[i]);
+    v = scale > 0.0 ? static_cast<float>(static_cast<double>(f) / scale) : 0.0f;
+  }
+  if (i < n_s) {
+    const int c = (i % 36) / 6, d = i % 6;
+    S[(6 * k1 + c) * (6 * K) + 6 * k2 + d] = v;
+  } else {
+    b_S[i - n_s] = v;
   }
 }
 
@@ -585,22 +718,48 @@ int blocks_for(int M) { return (M + kLandmarksPerBlock - 1) / kLandmarksPerBlock
 
 }  // namespace
 
+// Bytes of osl_ba_linearize's work buffer.
+OSL_EXPORT int osl_ba_linearize_work_bytes(int K, int M, int O) {
+  const long long n_obs = static_cast<long long>(M) * O;
+  const long long n_sums = 36LL * K * K + 6LL * K;
+  return static_cast<int>(12 * n_sums + 16LL * K + 4 * 61 * n_obs);
+}
+
 OSL_EXPORT int osl_ba_linearize(const float* poses, const float* points,
                                 const uint8_t* point_valid, const int* obs_kf,
                                 const float* obs_uvr, const float* obs_sigma2,
                                 const uint8_t* obs_mask, const float* lam,
                                 int K, int M, int O, float fx, float fy,
                                 float cx, float cy, float bf, int huber,
-                                float* S, float* b_S, float* E, float* Dinv,
-                                float* b_l, void* stream) {
+                                void* work, float* S, float* b_S, float* E,
+                                float* Dinv, float* b_l, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n = 6 * static_cast<size_t>(K);
-  cudaMemsetAsync(S, 0, n * n * sizeof(float), st);
-  cudaMemsetAsync(b_S, 0, n * sizeof(float), st);
+  // work (osl_ba_linearize_work_bytes): each entry's 64-bit sum and marks,
+  // each camera's four maxima (these three zeroed here), then each
+  // observation's E D^-1 (18), Jp^T w Jp (36), b_S term (6) and counted
+  // camera
+  const size_t n_obs = static_cast<size_t>(M) * O;
+  const int n_sums = 36 * K * K + 6 * K;
+  unsigned long long* acc = static_cast<unsigned long long*>(work);
+  int* marks = reinterpret_cast<int*>(acc + n_sums);
+  int* cam_max = marks + n_sums;
+  float* ED = reinterpret_cast<float*>(cam_max + 4 * K);
+  float* Hd = ED + 18 * n_obs;
+  float* bo = Hd + 36 * n_obs;
+  int* act = reinterpret_cast<int*>(bo + 6 * n_obs);
+  cudaMemsetAsync(work, 0, (12 * static_cast<size_t>(n_sums) + 16 * K), st);
   if (M > 0) {
     ba_linearize_kernel<<<blocks_for(M), kThreads, 0, st>>>(
         poses, points, point_valid, obs_kf, obs_uvr, obs_sigma2, obs_mask, lam,
-        K, M, O, Cam{fx, fy, cx, cy, bf}, huber, S, b_S, E, Dinv, b_l);
+        M, O, Cam{fx, fy, cx, cy, bf}, huber, E, Dinv, b_l, ED, Hd, bo, act,
+        cam_max);
+    ba_linearize_pairs_kernel<<<blocks_for(M), kThreads, 0, st>>>(
+        M, O, K, act, E, ED, Hd, bo, cam_max, acc, marks);
+  }
+  if (K > 0) {
+    ba_linearize_sum_kernel<<<(n_sums + kSumThreads - 1) / kSumThreads,
+                              kSumThreads, 0, st>>>(K, cam_max, acc, marks, S,
+                                                    b_S);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,10 @@ to gather and to write back, reads its abort flag between LM chunks, and a
 newer closure supersedes a running one. A failure of the task is printed
 and kept in ``gba_error`` for the system to raise on its caller's thread.
 
-Not in this slice: the mesh solves (slice 10), which raise
-NotImplementedError naming it.
+``global_bundle_adjustment(use_mesh=True)`` shards the landmark axis over
+a mesh of devices (``parallel/sharded_ba.py``, slice 10a). Not in this
+slice: the edge-sharded essential graph (``runtime.mesh_essential_graph``,
+slice 10b), which raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from .map.keyframe_database import KeyFrameDatabase
 from .map.state import MapState
 from .models.camera import Camera
 from .ops import ba, matching, sim3_np
+from .parallel import sharded_ba
 
 
 class LoopCloser:
@@ -494,7 +497,7 @@ class LoopCloser:
         cfg = self.cfg
         if cfg.runtime.mesh_essential_graph:
             raise NotImplementedError(
-                "the edge-sharded essential graph comes with ROADMAP slice 10")
+                "the edge-sharded essential graph comes with ROADMAP slice 10b")
         K = m.n_kf
         S_init = np.zeros((K, 8), np.float32)
         S_init[:, 0] = 1.0
@@ -561,7 +564,7 @@ class LoopCloser:
                                  abort_check=None, chunk: int = 5,
                                  sweep_window: Optional[int] = None,
                                  sweep_points: Optional[int] = None,
-                                 sweep_overlap: int = 64):
+                                 sweep_overlap: int = 64, mesh=None):
         """Full-map BA with snapshot semantics: gathered under the map lock,
         solved without it (in ``chunk``-iteration pieces when an
         ``abort_check`` is given, which is honoured between pieces), written
@@ -571,23 +574,25 @@ class LoopCloser:
         optimized by the overlapping-window sweep (``_gba_sweep``);
         ``sweep_points`` and ``sweep_overlap`` set its other sizes. Slots
         freed while it runs are recycled only after its write-back
-        (``MapState.hold_recycling``)."""
+        (``MapState.hold_recycling``). ``use_mesh`` solves the gathered
+        problem (no sweep) landmark-sharded over ``mesh``
+        (``parallel.sharded_ba``; by default every visible card), or, with
+        an ``abort_check``, in chunks on this closer's device, as the
+        reference does."""
         token = self.map.hold_recycling()
         try:
             return self._global_ba(iters, max_kfs, max_points, obs_cap, use_mesh,
                                    abort_check, chunk, sweep_window,
-                                   sweep_points, sweep_overlap)
+                                   sweep_points, sweep_overlap, mesh)
         finally:
             self.map.release_recycling(token)
 
     def _global_ba(self, iters, max_kfs, max_points, obs_cap, use_mesh,
-                   abort_check, chunk, sweep_window, sweep_points, sweep_overlap):
+                   abort_check, chunk, sweep_window, sweep_points, sweep_overlap,
+                   mesh):
         m = self.map
-        if use_mesh:
-            raise NotImplementedError(
-                "the landmark-sharded global BA comes with ROADMAP slice 10")
         iters = iters or self.cfg.runtime.global_ba_iters
-        if max_kfs is None:
+        if max_kfs is None and not use_mesh:
             n_live_kf = len(m.valid_keyframes())
             win = sweep_window or self._GBA_BUCKETS[-1][0]
             if n_live_kf > win:
@@ -605,7 +610,8 @@ class LoopCloser:
             return
         prob, kfs, mp_ids, opt_mask, n_ids = snap
         if abort_check is None:
-            res = self._gba_solve(prob, iters)
+            res = (self._gba_solve_mesh(prob, iters, mesh) if use_mesh
+                   else self._gba_solve(prob, iters))
         else:
             res = self._solve_chunked(prob, iters, abort_check, chunk)
             if res is None:
@@ -798,6 +804,18 @@ class LoopCloser:
 
     def _gba_solve(self, prob, iters: int):
         return ba.optimize_ba(cam=self.cam, prob=prob, iters=iters)
+
+    def _gba_solve_mesh(self, prob, iters: int, mesh=None):
+        """The reference's ``_gba_solve(use_mesh=True)``: the landmark axis
+        sharded over ``mesh`` (by default every visible card), padded to
+        divide by it with invalid, observation-free points
+        (``ops.ba.pad_problem``), the camera system summed once an LM
+        iteration."""
+        mesh = mesh or sharded_ba.make_landmark_mesh()
+        K, M = prob.poses.shape[0], prob.points.shape[0]
+        padded = ba.pad_problem(prob, K, -(-M // mesh.size) * mesh.size)
+        fn = sharded_ba.make_sharded_ba(mesh, iters=iters)
+        return fn(self.cam, sharded_ba.shard_problem(mesh, padded))
 
     def _gba_write_back(self, kfs, opt_mask, new_poses, mp_ids, new_points):
         """Apply the GBA result, propagating the correction to keyframes and

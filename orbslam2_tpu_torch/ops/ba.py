@@ -16,6 +16,14 @@ tensors and its plain PyTorch version for CPU tensors
 All state (poses, points, lambda, cost) stays on the device; nothing in
 ``optimize_ba`` waits for the device.
 
+The same schedule runs over landmark shards (``schedule``), as the
+reference's ``optimize_ba_impl`` runs under ``axis_name``: E and G on
+every shard, each shard's S, b_S and costs summed by a ``Reduction``
+(``parallel/sharded_ba.py`` in one process, ``parallel/distributed.py``
+across processes), F once on the summed system, H on every shard. Every
+shard ends each iteration with the same poses, lambda and cost, bit for
+bit. ``optimize_ba`` is the one-shard case, with nothing to sum.
+
 Schedule (the reference's): ``iters`` Huber iterations, then per outlier
 round a chi2 classification and ``iters // 2`` iterations on the inliers
 without the robust kernel. Each phase restarts lambda at 1e-4 and is split
@@ -25,10 +33,12 @@ schedule is; here both parts run in float32.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import contextlib
+from typing import Callable, List, NamedTuple, Optional, Protocol, Sequence
 
 import torch
 
+from ..device import on
 from ..kernels import ba_accept, ba_linearize, ba_solve, ba_update_cost
 from ..models.camera import Camera
 
@@ -67,6 +77,23 @@ PLAIN_STEPS = _Steps(ba_linearize.ba_linearize_plain, ba_solve.ba_solve_plain,
                      ba_accept.ba_accept_plain)
 
 
+class Reduction(Protocol):
+    """How the shards' partial sums are added (the reference's ``psum``).
+    ``system_rows(i)`` / ``cost_row(i)``: the tensors shard i's kernel E
+    writes its S and b_S into and kernel G its cost into (None: E and G
+    allocate their own). ``system(lins)``: S, b_S summed over the shards, on
+    the first shard's device. ``cost(costs)``: the summed cost, one tensor
+    per shard on its device (each shard's kernel H updates its own)."""
+
+    def system_rows(self, i: int): ...
+
+    def cost_row(self, i: int): ...
+
+    def system(self, lins: Sequence[ba_linearize.Linearized]): ...
+
+    def cost(self, costs: Sequence[torch.Tensor]) -> List[torch.Tensor]: ...
+
+
 def pad_problem(prob: BAProblem, K: int, M: int) -> BAProblem:
     """``prob`` padded to K cameras and M landmarks the way the reference
     pads global BA to its size buckets: identity poses, held fixed; points
@@ -93,7 +120,8 @@ def optimize_ba(cam: Camera, prob: BAProblem, iters: int = 15,
                 outlier_rounds: int = 1, fix_points: bool = False) -> BAResult:
     """Run the reference's local/global BA schedule (single device): the
     kernels for CUDA tensors, their plain versions for CPU tensors."""
-    return _schedule(cam, prob, iters, outlier_rounds, fix_points, KERNEL_STEPS)
+    return schedule(cam, [prob], iters, outlier_rounds, fix_points,
+                    KERNEL_STEPS)[0]
 
 
 def optimize_ba_plain(cam: Camera, prob: BAProblem, iters: int = 15,
@@ -112,39 +140,115 @@ def _split(n: int):
 
 def _schedule(cam, prob: BAProblem, iters, outlier_rounds, fix_points,
               steps: _Steps) -> BAResult:
-    obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+    return schedule(cam, [prob], iters, outlier_rounds, fix_points, steps)[0]
+
+
+def _made_current(device):
+    """A context that makes ``device`` the current CUDA device where it is
+    not already (a shard on another card); nothing otherwise."""
+    dev = torch.device(device)
+    if (dev.type == "cuda" and dev.index is not None
+            and dev.index != torch.cuda.current_device()):
+        return on(dev)
+    return contextlib.nullcontext()
+
+
+class _Shard:
+    """One shard's problem and its copy of the solve's state."""
+
+    def __init__(self, prob: BAProblem, n_phases: int):
+        self.prob = prob
+        self.on = _made_current(prob.points.device)
+        self.obs = (prob.point_valid, prob.obs_kf, prob.obs_uvr, prob.obs_sigma2)
+        # one lambda per phase, each starting at 1e-4
+        self.lams = torch.full((n_phases,), 1e-4, dtype=prob.poses.dtype,
+                               device=prob.poses.device)
+        self.poses = prob.poses.clone()
+        self.points = prob.points.clone()
+        self.mask = prob.obs_valid
+
+
+def schedule(cam, probs: Sequence[BAProblem], iters, outlier_rounds,
+             fix_points, steps: _Steps, reduction: Optional[Reduction] = None
+             ) -> List[BAResult]:
+    """The schedule over the landmark shards ``probs`` (each the cameras and
+    its own landmarks, on its device), their sums added by ``reduction``
+    (None for one shard). Each shard's kernels launch with its device current; F solves on
+    the first shard's. Returns each shard's result: the same poses and cost
+    on every shard, its own points and inliers."""
+    if reduction is None and len(probs) != 1:
+        raise ValueError("more than one shard needs a reduction")
     lengths = _split(iters) + outlier_rounds * _split(max(iters // 2, 1))
-    # one lambda per phase, each starting at 1e-4
-    lams = torch.full((len(lengths),), 1e-4, dtype=prob.poses.dtype,
-                      device=prob.poses.device)
-    poses = prob.poses.clone()
-    points = prob.points.clone()
+    shards = []
+    for p in probs:
+        with _made_current(p.points.device):
+            shards.append(_Shard(p, len(lengths)))
+    first = shards[0]
     phase = iter(range(len(lengths)))
+    n = len(shards)
+    cost_rows = [reduction and reduction.cost_row(i) for i in range(n)]
+    system_rows = [reduction and reduction.system_rows(i) for i in range(n)]
 
-    def lm_phase(mask, use_huber, n):
+    def summed(costs):
+        if reduction is None:
+            return costs
+        with first.on:
+            return reduction.cost(costs)
+
+    def lm_phase(use_huber, n_iters):
         p = next(phase)
-        lam = lams[p:p + 1]
-        _, cost, _ = steps.update_cost(cam, poses, points, *obs,
-                                       prob.obs_valid, mask, use_huber)
-        for _ in range(n):
-            lin = steps.linearize(cam, poses, points, *obs, mask, lam, use_huber)
-            dc, poses_n = steps.solve(lin.S, lin.b_S, prob.opt_mask, lam, poses)
-            # fix_points: dl = 0, so the trial points are the points
-            step = None if fix_points else (dc, lin.E, lin.Dinv, lin.b_l)
-            points_n, cost_n, _ = steps.update_cost(
-                cam, poses_n, points, *obs, prob.obs_valid, mask, use_huber, step)
-            steps.accept(cost_n, poses_n, points_n, cost, lam, poses, points)
-        return cost
+        lam = [s.lams[p:p + 1] for s in shards]
+        costs = []
+        for i, s in enumerate(shards):
+            with s.on:
+                costs.append(steps.update_cost(
+                    cam, s.poses, s.points, *s.obs, s.prob.obs_valid, s.mask,
+                    use_huber, cost_out=cost_rows[i])[1])
+        costs = summed(costs)
+        for _ in range(n_iters):
+            lins = []
+            for i, s in enumerate(shards):
+                with s.on:
+                    lins.append(steps.linearize(
+                        cam, s.poses, s.points, *s.obs, s.mask, lam[i], use_huber,
+                        out=system_rows[i]))
+            with first.on:
+                S, b_S = ((lins[0].S, lins[0].b_S) if reduction is None
+                          else reduction.system(lins))
+                dc, poses_n = steps.solve(S, b_S, first.prob.opt_mask, lam[0],
+                                          first.poses)
+            trials = []
+            for i, (s, lin) in enumerate(zip(shards, lins)):
+                with s.on:
+                    dev = s.poses.device
+                    dc_i, poses_i = dc.to(dev), poses_n.to(dev)
+                    # fix_points: dl = 0, so the trial points are the points
+                    step = None if fix_points else (dc_i, lin.E, lin.Dinv, lin.b_l)
+                    points_i, cost_i, _ = steps.update_cost(
+                        cam, poses_i, s.points, *s.obs, s.prob.obs_valid, s.mask,
+                        use_huber, step, cost_out=cost_rows[i])
+                trials.append((poses_i, points_i, cost_i))
+            cost_n = summed([t[2] for t in trials])
+            for i, (s, (poses_i, points_i, _)) in enumerate(zip(shards, trials)):
+                with s.on:
+                    steps.accept(cost_n[i], poses_i, points_i, costs[i], lam[i],
+                                 s.poses, s.points)
+        return costs
 
-    mask = prob.obs_valid
-    for n in _split(iters):
-        cost = lm_phase(mask, True, n)
+    for n_iters in _split(iters):
+        costs = lm_phase(True, n_iters)
     for _ in range(outlier_rounds):
-        _, _, mask = steps.update_cost(cam, poses, points, *obs,
-                                       prob.obs_valid, mask, False)
-        for n in _split(max(iters // 2, 1)):
-            cost = lm_phase(mask, False, n)
-    _, _, inlier = steps.update_cost(cam, poses, points, *obs, prob.obs_valid,
-                                     mask, False)
-    return BAResult(poses=poses, points=points, obs_inlier=inlier,
-                    cost=cost.reshape(()))
+        for s in shards:
+            with s.on:
+                _, _, s.mask = steps.update_cost(cam, s.poses, s.points, *s.obs,
+                                                 s.prob.obs_valid, s.mask, False)
+        for n_iters in _split(max(iters // 2, 1)):
+            costs = lm_phase(False, n_iters)
+    out = []
+    for s, cost in zip(shards, costs):
+        with s.on:
+            _, _, inlier = steps.update_cost(cam, s.poses, s.points, *s.obs,
+                                             s.prob.obs_valid, s.mask, False)
+        out.append(BAResult(poses=s.poses, points=s.points, obs_inlier=inlier,
+                            cost=cost.reshape(())))
+    return out

@@ -3,11 +3,12 @@ results spread on the card.
 
     python -m orbslam2_tpu_torch.utils.ba_parity [--seeds 16] [--reps 4]
 
-``compare`` holds a result (the kernels') against a reference (the plain
-schedule) on one problem. S is a float-atomic sum, so its rounding changes
-from run to run, and a landmark that its observations barely pin down
-(a short baseline, few inliers) moves along its weak direction by far more
-than that rounding. Points are therefore read two ways:
+``compare`` holds a result (the kernels', or a sharded schedule's) against
+a reference (the plain schedule) on one problem. The two sum S and the
+costs in other orders, so they round differently, and a landmark that its
+observations barely pin down (a short baseline, few inliers) moves along
+its weak direction by far more than that rounding. Points are therefore
+read two ways:
 
 - ``points``: the largest difference relative to the point's distance, over
   the landmarks that the reference's final inliers constrain: the point's
@@ -23,7 +24,8 @@ Run as a script on a CUDA device, it solves ``ba_window`` problems of
 ``--seeds`` seeds (and the seed chip_smoke.py uses) at the two shapes that
 chip_smoke.py checks, the plain schedule once and the kernels ``--reps``
 times per seed, and prints each kernel run against the plain result, the
-kernels' run-to-run spread (each run against the seed's first), and the
+kernels' run-to-run spread (each run against the seed's first; zero since
+kernel E sums S in a fixed order), and the
 largest reading of each per shape beside its limit.
 """
 
@@ -40,8 +42,8 @@ from ..ops import ba
 from .synthetic import ba_window
 
 LOOSE_SD = 0.05
-# kernels against the plain schedule: float atomics in S and sums in
-# another order (readings and margins in PERF.md)
+# kernels (or shards) against the plain schedule: sums in another order
+# (readings and margins in PERF.md)
 LIMITS = dict(poses=1e-4, points=1e-4, reproj=1e-2, flips=1e-3, cost=1e-3)
 # chip_smoke.py's shapes: cameras, landmarks, iterations (+ one outlier
 # round): the local-BA window, the reference bench's, and the largest

@@ -17,9 +17,11 @@ import numpy as np
 
 from ..config import SlamConfig
 from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve, upload
 from ..map.keyframe_database import KeyFrameDatabase
 from ..map.state import MapState
 from ..models.camera import Camera
+from ..ops.ba import BAProblem
 
 BRIEF_PATTERN_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
@@ -42,6 +44,20 @@ def camera_from_numpy(d: dict) -> Camera:
     (``cam._asdict()`` with each value as a numpy scalar or float)."""
     return Camera.create(*(float(np.asarray(d[k])) for k in _CAMERA_FIELDS),
                          width=int(d["width"]), height=int(d["height"]))
+
+
+def ba_problem_from_numpy(arrays, device=DEFAULT_DEVICE) -> BAProblem:
+    """A BAProblem on ``device`` holding copies of the reference's BA inputs:
+    its ``BAProblem``'s eight arrays in field order (``poses``, ``opt_mask``,
+    ``points``, ``point_valid``, ``obs_kf``, ``obs_uvr``, ``obs_sigma2``,
+    ``obs_valid``), or a dict of them by field name."""
+    if isinstance(arrays, dict):
+        arrays = [arrays[f] for f in BAProblem._fields]
+    dtypes = (np.float32, bool, np.float32, bool, np.int32, np.float32,
+              np.float32, bool)
+    dev = resolve(device)
+    return BAProblem(*(upload(np.asarray(a, dtype=t), dev)
+                       for a, t in zip(arrays, dtypes)))
 
 
 def map_state_from_numpy(cfg: SlamConfig, d: dict,

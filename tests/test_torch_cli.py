@@ -74,6 +74,48 @@ def test_dataset_loaders_match_reference(tum_dir, tmp_path):
                     np.testing.assert_array_equal(ra, rb)
 
 
+def test_euroc_stereo_skips_frames_without_a_right_image(tmp_path):
+    """A EuRoC stereo frame whose cam1 image is missing is skipped by the
+    port's runner, as the reference's evaluation harness skips it
+    (``examples/eval_datasets.py``); the reference runner would hand it to
+    ``track_monocular`` on a stereo system (a named divergence). Every other
+    frame goes to ``track_stereo`` in order."""
+    from orbslam2_tpu_torch.config import SlamConfig
+    from orbslam2_tpu_torch.examples import run_slam
+
+    rng = np.random.default_rng(5)
+    euroc = tmp_path / "euroc"
+    stamps = [1403636579763555584 + i * 50000000 for i in range(5)]
+    for cam in ("cam0", "cam1"):
+        os.makedirs(euroc / "mav0" / cam / "data")
+        for i, ns in enumerate(stamps):
+            if cam == "cam1" and i == 2:
+                continue
+            write_png(str(euroc / "mav0" / cam / "data" / f"{ns}.png"),
+                      rng.integers(0, 256, (24, 40)).astype(np.uint8))
+    cfg = SlamConfig()
+    cfg.sensor = "stereo"
+
+    class Recorder:
+        def __init__(self):
+            self.calls = []
+
+        def track_stereo(self, left, right, ts):
+            assert left.shape == right.shape == (24, 40)
+            self.calls.append(("stereo", ts))
+
+        def track_monocular(self, img, ts):
+            self.calls.append(("monocular", ts))
+
+    slam, times = Recorder(), []
+    run_slam.run_frames("euroc-stereo", str(euroc), cfg, slam, times)
+    want = [("stereo", ns * 1e-9) for i, ns in enumerate(stamps) if i != 2]
+    assert slam.calls == want and len(times) == 4
+    mono = Recorder()
+    run_slam.run_frames("euroc-mono", str(euroc), cfg, mono, [])
+    assert mono.calls == [("monocular", ns * 1e-9) for ns in stamps]
+
+
 def test_associate_matches_reference(tum_dir):
     a = tdata._read_tum_list(str(tum_dir / "rgb.txt"))
     b = tdata._read_tum_list(str(tum_dir / "depth.txt"))

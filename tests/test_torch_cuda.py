@@ -186,8 +186,8 @@ def _point_rel(a, b):
 @pytest.mark.parametrize("K,M,iters", BA_SHAPES)
 def test_ba_steps_match_plain(cuda, K, M, iters):
     """One LM iteration, kernel by kernel (E, F, G, H), each fed the same
-    inputs as its plain version. S is a float-atomic sum and the other sums
-    run in another order: 1e-4 of each output's largest entry for E, 1e-4
+    inputs as its plain version. E sums S over its pair list and the other
+    sums run in another order: 1e-4 of each output's largest entry for E, 1e-4
     on the trial poses, 1e-4 of each point's distance, 1e-4 relative on
     the cost, 0.1%
     inlier flips; H only selects and scales, so it is exact."""
@@ -241,7 +241,7 @@ def test_ba_nan_trial_cost_matches_plain(cuda, huber):
 @pytest.mark.parametrize("K,M,iters", BA_SHAPES)
 def test_optimize_ba_matches_plain(cuda, K, M, iters):
     """The whole schedule through kernels E-H against the plain schedule on
-    the card, held to ``ba_parity.LIMITS`` (float atomics in S): poses
+    the card, held to ``ba_parity.LIMITS`` (sums in another order): poses
     1e-4, points 1e-4 of their distance where the final inliers constrain
     them and every point's reprojections within 1e-2 px, 0.1% inlier
     flips, cost 1e-3 relative."""
@@ -260,6 +260,47 @@ def test_optimize_ba_matches_plain(cuda, K, M, iters):
     assert counts["ba_linearize"] == n_solve == counts["ba_accept"] == n_lm
     assert counts["ba_solve_blocked"] == (n_lm if K > ba_solve.MAX_SINGLE_K else 0)
     assert counts["ba_update_cost"] == n_lm + n_phases + 2
+
+
+def test_shard_reduce_bit_exact(cuda):
+    """Kernel shard_reduce against its plain twin, bit for bit: the packed
+    S | b_S rows of 4 shards at K = 64 (the float4 path), the costs of 8
+    shards and a row length that is not a multiple of 4."""
+    from orbslam2_tpu_torch.kernels import shard_reduce
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kernels.reset_launches()
+    for n, L in ((4, 384 * 384 + 384), (8, 1), (3, 1001)):
+        x = torch.randn((n, L), device=cuda, generator=gen) * 1e4
+        assert torch.equal(shard_reduce.shard_reduce(x),
+                           shard_reduce.shard_reduce_plain(x))
+    assert kernels.launch_counts()["shard_reduce"] == 3
+
+
+def test_mesh_on_one_card_matches_plain(cuda):
+    """The landmark-sharded BA over 4 shards of one card (K = 64, M = 4096,
+    10 iterations + the outlier round): kernels E-H and shard_reduce
+    against the plain sharded schedule within ``ba_parity.LIMITS``, E and
+    G launched once a shard an LM iteration, and a second call the same
+    bits (no float atomics in any sum)."""
+    from orbslam2_tpu_torch.parallel import sharded_ba
+
+    prob = _ba_problem(cuda, 64, 4096)
+    mesh = sharded_ba.make_landmark_mesh([cuda] * 4)
+    shards = sharded_ba.shard_problem(mesh, prob)
+    kernels.reset_launches()
+    rk = sharded_ba.make_sharded_ba(mesh, iters=10)(BA_CAM, shards)
+    counts = kernels.launch_counts()
+    rp = sharded_ba.make_sharded_ba(mesh, iters=10, plain=True)(BA_CAM, shards)
+    assert ba_parity.over_limits(ba_parity.compare(BA_CAM, prob, rk, rp)) == {}
+    n_lm = 10 + 5
+    n_phases = len(ba._split(10)) + len(ba._split(5))
+    assert counts["ba_linearize"] == 4 * n_lm and counts["ba_solve"] == n_lm
+    assert counts["ba_accept"] == 4 * n_lm
+    assert counts["shard_reduce"] == 2 * n_lm + n_phases
+    again = sharded_ba.make_sharded_ba(mesh, iters=10)(BA_CAM, shards)
+    for a, b in zip(rk, again):
+        assert torch.equal(a, b)
 
 
 def test_ba_kernels_refuse_oversize(cuda):

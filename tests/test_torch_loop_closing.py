@@ -3,7 +3,7 @@
 carried over with utils/convert.py), kernels as their plain versions:
 the reference's two tests with their assertions, slice parity against the
 JAX LoopCloser, and global BA, padded to the reference's bucket or sized to
-the live map, and past the old 64-camera limit."""
+the live map, past the old 64-camera limit, and on a landmark mesh."""
 
 import dataclasses
 
@@ -295,3 +295,42 @@ def test_gba_schedule_past_the_single_block_limit():
             cam, poses, points, *obs, prob.obs_valid, r.obs_inlier, False)[1])
 
     assert cost(rb.poses, rb.points) < 0.1 * cost(prob.poses, prob.points)
+
+
+def test_gba_on_a_landmark_mesh(closed):
+    """``global_bundle_adjustment(use_mesh=True)`` on an 8-shard CPU mesh:
+    the gathered problem, padded to divide by the mesh, is solved by
+    ``parallel.sharded_ba`` (not the single-device schedule), its poses and
+    points are written back, and the map reprojects at sub-pixel medians.
+    Not compared at tight tolerance with the single-device GBA: the
+    circle's problem moves by 2e-4 under any change of summation order
+    (``test_gba_padded_matches_live_size``)."""
+    from orbslam2_tpu_torch.parallel import sharded_ba
+
+    lc, _, _ = closed
+    mesh = sharded_ba.make_landmark_mesh(["cpu"] * 8)
+    solved = {}
+    solve_mesh = lc._gba_solve_mesh
+
+    def record(prob, iters, mesh=None):
+        solved["n"] = prob.points.shape[0]
+        solved["res"] = solve_mesh(prob, iters, mesh)
+        return solved["res"]
+
+    def single(prob, iters):
+        raise AssertionError("use_mesh ran the single-device solve")
+
+    lc._gba_solve_mesh, lc._gba_solve = record, single
+    try:
+        epoch = lc.map.correction_epoch
+        lc.global_bundle_adjustment(use_mesh=True, mesh=mesh)
+    finally:
+        del lc._gba_solve_mesh, lc._gba_solve
+    _, kfs, mp_ids, opt_mask, n_ids = lc._gba_gather(None, None, 8)
+    res = solved["res"]
+    assert res.points.shape[0] % 8 == 0 and res.points.shape[0] >= solved["n"] == n_ids
+    assert lc.map.correction_epoch == epoch + 1
+    np.testing.assert_array_equal(lc.map.kf_pose[np.asarray(kfs)[opt_mask]],
+                                  res.poses.numpy()[opt_mask])
+    np.testing.assert_array_equal(lc.map.mp_pos[mp_ids], res.points.numpy()[:n_ids])
+    assert max(_reprojection_medians(lc.map, kfs)) < 1.0

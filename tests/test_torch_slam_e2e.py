@@ -133,15 +133,25 @@ class TestRgbdPipeline:
                 assert other.track_monocular(img, 0.0) is None
             assert other.tracking_state != TrackingState.NO_IMAGES_YET
         # pipelined tracking is ported (slice 9): a first frame initializes
-        # through it; the mesh solves (slice 10) still raise
+        # through it; the landmark-sharded GBA is ported (slice 10a): on a
+        # mesh it solves the gathered map in one piece, no sweep, as the
+        # reference; the edge-sharded essential graph (slice 10b) still
+        # raises
         slam = SlamSystem(_cfg(), device="cpu")
         depth = rgbd_sequence[0][0][1]
         assert slam.tracker.track_pipelined(img, 0.0, depth_map=depth) is not None
         assert slam.tracking_state == TrackingState.OK
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            closer.global_bundle_adjustment(use_mesh=True)
+        from orbslam2_tpu_torch.parallel import sharded_ba
+
+        meshes = []
+        solve_mesh = closer._gba_solve_mesh
+        monkeypatch.setattr(closer, "_gba_solve_mesh", lambda prob, iters, mesh:
+                            meshes.append(mesh.size) or solve_mesh(prob, iters, mesh))
+        closer.global_bundle_adjustment(
+            use_mesh=True, mesh=sharded_ba.make_landmark_mesh(["cpu"] * 8))
+        assert meshes == [8] and len(sweeps) == 1
         closer.cfg.runtime.mesh_essential_graph = True
-        with pytest.raises(NotImplementedError, match="slice 10"):
+        with pytest.raises(NotImplementedError, match="slice 10b"):
             closer._optimize_essential_graph(0, 1, {}, {})
         # localization mode is ported (slice 7): it switches the tracker
         slam.activate_localization_mode()
